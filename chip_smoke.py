@@ -10,7 +10,11 @@ Phases (one JSON line each, with its seconds):
   2. kernels  — every kernel against its plain PyTorch twin on the card,
                 array-equal: the compact solve at the c2m bucket (10240
                 nodes, 128 groups, 1024-wide readback) on seeded random
-                and all-tied inputs and with negative free capacity; the
+                and all-tied inputs and with negative free capacity, and
+                where its cluster selection can go wrong (compact_cases:
+                several selection rounds, groups cut by k, Np 100352 with
+                its slices in shared and in global memory, Np 256 and
+                1024 leaving blocks empty); the
                 dense and the preemption solves at the preempt wave's
                 bucket (10240 nodes, 80 groups, 4 tier rows) on seeded
                 random, all-tied and negative-free inputs and with tier
@@ -37,8 +41,9 @@ Phases (one JSON line each, with its seconds):
                 wave and read just after; both kernels must have run;
   5. mesh     — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
-                c2m_sharded's bucket, Np 100352 on 1 and 8 shards, and at
-                the preempt wave's, on 8 shards): bench.py
+                c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
+                unit caps of 1 for several selection rounds and with lists
+                cut by k, and at the preempt wave's, on 8 shards): bench.py
                 run_c2m_sharded_config's shapes at full width, 100,000
                 nodes and rounds of 16 jobs x 500 allocs, round 1 solved
                 on one snapshot without a mesh, on 1 shard and on 8 (the
@@ -295,24 +300,70 @@ def scatter_problem(rng, n=10240, b=700):
 # ---------------------------------------------------------------------------
 
 
+def unit_caps_of_one(arrays, counts_from: int, counts_to: int, rng):
+    """A compact_problem whose every node takes at most one instance of a
+    group, with counts in [counts_from, counts_to): a group then needs one
+    pick per instance, more than one selection round's 16 x 32."""
+    arrays = list(arrays)
+    arrays[8] = np.ones_like(arrays[8])
+    arrays[3] = rng.integers(counts_from, counts_to,
+                             arrays[3].shape).astype(np.int32)
+    return arrays
+
+
+def compact_cases(rng) -> list:
+    """(name, arrays, max_count) for K1: the c2m bucket's random, all-tied
+    (ties straddle every block slice) and negative-free problems; groups
+    needing several selection rounds (unit caps of 1, counts past 512);
+    groups cut by k; Np 100352 (c2m_sharded's bucket) with i16 unit caps,
+    whose slices fit in shared memory, and with i32 caps, whose slices do
+    not (the global-memory variant); and Np 256 and 1024, which leave
+    blocks of the cluster with part of a slice or none."""
+    def caps32(arrays):
+        arrays = list(arrays)
+        arrays[8] = arrays[8].astype(np.int32)
+        return arrays
+
+    return [
+        ("random", compact_problem(rng), 1024),
+        ("tied", compact_problem(rng, tied=True), 1024),
+        ("negative_free", compact_problem(rng, negative=True), 1024),
+        ("multi_round", unit_caps_of_one(compact_problem(rng, g=32),
+                                         600, 1000, rng), 1024),
+        ("tied_multi_round", unit_caps_of_one(
+            compact_problem(rng, g=16, tied=True), 600, 1000, rng), 1024),
+        ("cut_by_k", unit_caps_of_one(compact_problem(rng, g=32),
+                                      100, 1000, rng), 64),
+        ("np100352", compact_problem(rng, n=100352, g=16), 1024),
+        ("np100352_global_slices",
+         caps32(compact_problem(rng, n=100352, g=16)), 1024),
+        ("np1024", compact_problem(rng, n=1024, g=24), 256),
+        ("np256_tied", compact_problem(rng, n=256, g=24, tied=True), 256),
+    ]
+
+
 def kernel_checks(dev, seed: int) -> list:
     """Each kernel against its twin on seeded inputs at the c2m bucket.
     Returns K4's arguments from the random dense case, a call that
     places, for replay_dense to time beside the path's own call."""
     rng = np.random.default_rng(seed)
-    cases = [
-        ("random", compact_problem(rng)),
-        ("tied", compact_problem(rng, tied=True)),
-        ("negative_free", compact_problem(rng, negative=True)),
-    ]
-    for name, arrays in cases:
+    variants = set()
+    for name, arrays, maxc in compact_cases(rng):
         args = [torch.from_numpy(a).to(dev) for a in arrays]
-        got = tk.solve_placement_compact(*args, max_count=1024)
-        want = tk.solve_placement_compact_plain(*args, max_count=1024)
+        got = tk.solve_placement_compact(*args, max_count=maxc)
+        launch = tk.solve_placement_compact.last_launch
+        want = tk.solve_placement_compact_plain(*args, max_count=maxc)
         torch.cuda.synchronize()
         for label, g_, w_ in zip(("inst", "over", "used'"), got, want):
-            check(torch.equal(g_, w_), f"compact {name}: {label} differs")
+            check(torch.equal(g_, w_), f"compact {name}: {label} differs "
+                  f"(launch {launch})")
         check(int((got[0] >= 0).sum()) > 0, f"compact {name}: placed nothing")
+        variants.add(launch["smem_slices"])
+        if name == "np100352_global_slices":
+            check(not launch["smem_slices"],
+                  "Np 100352 with i32 caps kept its slices in shared memory")
+    check(variants == {True, False},
+          "K1's shared- and global-memory slice variants were not both run")
     dense_cases = [
         ("random, limit at the pad", dense_problem(rng, tiers=2)),
         ("tied", dense_problem(rng, tied=True)),
@@ -354,7 +405,7 @@ def kernel_checks(dev, seed: int) -> list:
 
 def mesh_kernel_checks(dev, rng) -> None:
     """K6 in its three modes at c2m_sharded's bucket (Np 100352, Gp 16)
-    on 1 and 8 shards, and K7 at the preempt wave's bucket (Np 10240,
+    on 1 and 8 shards (and 32 on the random problem), and K7 at the preempt wave's bucket (Np 10240,
     Gp 80, Tp 4) on 8 shards: each against its twin, and against the
     single-card kernel (K4 for K6's full and top-k modes, K1 for
     compact, K5 for K7) on the same inputs, array-equal."""
@@ -373,7 +424,8 @@ def mesh_kernel_checks(dev, rng) -> None:
             ),
         }
         single["topk"] = single["full"]
-        for d in (1, 8):
+        # 32 shards: more lists than the candidate fill merges at once
+        for d in ((1, 8, 32) if name == "random" else (1, 8)):
             for mode, kw in (("full", {}), ("topk", {"max_count": maxc}),
                              ("compact", {"max_count": maxc,
                                           "compact": True})):
@@ -390,6 +442,36 @@ def mesh_kernel_checks(dev, rng) -> None:
                           "from the single-card kernel")
         check(int((single["compact"][0] >= 0).sum()) > 0,
               f"sharded {name}: placed nothing")
+    # the selection's own edges: unit caps of 1, so a shard's list needs
+    # several rounds (counts past 16 x 32), and lists cut by k = 64
+    for name, maxc in (("multi_round", 512), ("cut_by_k", 64)):
+        arrays = mesh_problem(rng)
+        arrays[6] = np.ones_like(arrays[6])
+        arrays[3] = rng.integers(300, 501, arrays[3].shape).astype(np.int32)
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        idx = torch.arange(t[2].shape[0], dtype=torch.int32, device=dev)
+        packed = torch.from_numpy(np.packbits(arrays[4], axis=1)).to(dev)
+        single = {"topk": tk.solve_placement(*t),
+                  "compact": tk.solve_placement_compact(
+                      t[0], t[1], t[2], t[3], packed, idx, t[5], idx, t[6],
+                      idx, max_count=maxc)}
+        for d in (1, 8):
+            for mode, kw in (("topk", {"max_count": maxc}),
+                             ("compact", {"max_count": maxc,
+                                          "compact": True})):
+                got = tk.sharded_solver(*t, n_shards=d, **kw)
+                want = tk.sharded_solver_plain(*t, n_shards=d, **kw)
+                torch.cuda.synchronize()
+                for i, (g_, w_, s_) in enumerate(
+                        zip(got, want, single[mode])):
+                    check(torch.equal(g_, w_),
+                          f"sharded {mode} d{d} {name}: output {i} differs "
+                          "from its twin")
+                    # k bounds every group's receivers only uncut
+                    if name == "multi_round":
+                        check(torch.equal(g_, s_),
+                              f"sharded {mode} d{d} {name}: output {i} "
+                              "differs from the single-card kernel")
     for name, kwargs in (("random", {}), ("tied", {"tied": True}),
                          ("negative_free", {"negative": True})):
         _, k5 = dense_problem(rng, **kwargs)
@@ -909,6 +991,7 @@ def replay(rec: dict, launches: dict) -> list:
     )
     out.append(entry("solve_placement_compact", launches, k1_err, ms, plain_ms,
                      k1_bytes, k1_ops, None, enqueue_ms=enq,
+                     launch=tk.solve_placement_compact.last_launch,
                      shape={"np": cap.shape[0], "gp": asks.shape[0],
                             "live_groups": live_groups,
                             "max_count": kw["max_count"]}))
@@ -1086,7 +1169,9 @@ def replay_mesh(paths: dict, launches: dict) -> list:
         reps = max(1, min(5, 512 // per_solve))
         ms, enq = device_ms(lambda: fn(*args, **kw), reps)
         plain_ms = time_ms(lambda: plain(*args, **kw), 3)
-        extra = {"kernel_split_ms": device_split_ms(lambda: fn(*args, **kw))}
+        extra = {"kernel_split_ms": device_split_ms(lambda: fn(*args, **kw)),
+                 "shard_cluster": libkernels.library().nomad_shard_cluster(
+                     kw["n_shards"], cap.shape[0] // kw["n_shards"])}
         if name == "sharded_solver":
             # the same call with every row in one shard
             one = dict(kw, n_shards=1)
@@ -1096,6 +1181,8 @@ def replay_mesh(paths: dict, launches: dict) -> list:
             d1_ms, d1_enq = device_ms(lambda: fn(*args, **one), reps)
             extra["one_shard"] = {
                 "ms": d1_ms, "enqueue_ms": d1_enq,
+                "shard_cluster": libkernels.library().nomad_shard_cluster(
+                    1, cap.shape[0]),
                 "kernel_split_ms": device_split_ms(lambda: fn(*args, **one)),
             }
         out.append(entry(name, launches, err, ms, plain_ms,

@@ -23,17 +23,22 @@
 // shards of one card the gather costs nothing.
 //
 // Four kernels, launched per card in order on the card's stream:
-//   shard_score         one block per shard: units and score of the
-//                       shard's rows (solve_common.cuh); full mode writes
-//                       them into the gathered [Np] vectors, top-k mode
-//                       selects the shard's best unit-bearing rows into
-//                       its [k] slot of the [D*k] candidate buffer;
-//   candidate_fill      one block: merges the D sorted candidate lists in
-//                       (score desc, global index asc) order, which is
-//                       argsort by index then stable argsort by -score,
-//                       places min(units, left) on each until the group
-//                       is placed, applies the card's own takes, and in
-//                       compact mode writes inst[g, :maxC] in node order;
+//   shard_score         one thread-block cluster per shard, up to 16
+//                       blocks wide (D x size <= the card's SMs: 8 shards
+//                       x 16 = 128 of 132), each block a contiguous part
+//                       of the shard's rows: units and score
+//                       (solve_common.cuh); full mode writes them into
+//                       the gathered [Np] vectors, top-k mode runs the
+//                       cluster-wide selection (solve_common.cuh
+//                       cluster_select) into the shard's [k] slot of the
+//                       [D*k] candidate buffer;
+//   candidate_fill      one block: one warp merges the D sorted candidate
+//                       lists in (score desc, global index asc) order,
+//                       which is argsort by index then stable argsort by
+//                       -score, places min(units, left) on each until the
+//                       group is placed and applies the card's own takes;
+//                       in compact mode the block writes inst[g, :maxC]
+//                       in node order;
 //   gathered_waterfill  one block: K4's pick loop over the gathered [Np]
 //                       vectors (picking the best unit-bearing node until
 //                       `count` is placed is the stable-argsort
@@ -45,16 +50,16 @@
 //                       preemption solve's used' = used - freed + used_new.
 //
 // What bounds it on the card: not bytes (c2m_sharded moves ~10 MB per
-// batch) but the step-by-step dependency between groups and, inside a
-// step, one block-wide argmax per selected candidate and per pick. The
-// selection in top-k mode stops early: a shard's later candidates can
-// only rank after its earlier ones, so once the units it has selected
-// cover the group's count, nothing it would add could receive an
-// instance. Its unfilled slots carry no units.
+// batch) but the step-by-step dependency between groups (two launches
+// per step, each waiting on the last) and, inside a step, the barriers
+// of the selection. A shard's selection stops early: its later
+// candidates can only rank after its earlier ones, so once the units it
+// has selected cover the group's count, nothing it would add could
+// receive an instance. Its unfilled slots carry no units.
 //
-// Numerics: solve_common.cuh (floor-div units, int32 wrap, the f32 score
-// term for term; build with --fmad=false). Ties go to the lower global
-// node index, as lax.top_k and a stable argsort order them.
+// Numerics: solve_common.cuh (floor-div units, int32 wrap, XLA's score
+// rounding; build with --fmad=false). Ties go to the lower global node
+// index, as lax.top_k and a stable argsort order them.
 
 #include "solve_common.cuh"
 
@@ -63,6 +68,9 @@ namespace {
 using namespace nomad;
 
 enum ScoreMode { kFull = 0, kTopk = 1, kPhase1 = 2, kPhase2 = 3 };
+
+// the candidate fill's list heads (kernels.py MAX_SHARDS)
+constexpr int kMaxShards = 1024;
 
 struct ScoreArgs {
   int mode;
@@ -94,22 +102,31 @@ struct ScoreArgs {
   int w;                  // rows per shard
   int s0;                 // global index of the card's first shard
   int k;
+  int smem_rows;          // top-k: score/units of a block's rows in shared
+                          // memory (else in score_s/units_s)
 };
 
-__global__ void __launch_bounds__(kThreads, 1) shard_score_kernel(ScoreArgs a) {
-  __shared__ float sh_s[kWarps];
-  __shared__ int sh_i[kWarps];
-  __shared__ float best_s;
-  __shared__ int best_i;
-  __shared__ long long covered;
+__global__ void __launch_bounds__(kSelThreads, 1)
+shard_score_kernel(ScoreArgs a) {
+  __shared__ SelectShared sh;
+  extern __shared__ __align__(16) uint8_t dsm[];
 
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int lo = blockIdx.x * a.w;  // the shard's first card row
-  const int hi = lo + a.w;
-  const int base = a.s0 * a.w;      // global index of card row 0
+  const int csize = (int)cluster.num_blocks();
+  const int shard = blockIdx.x / csize;  // one cluster per shard
+  const int sub = (a.w + csize - 1) / csize;
+  const int shard_lo = shard * a.w;      // the shard's first card row
+  const int lo = min(shard_lo + (int)cluster.block_rank() * sub,
+                     shard_lo + a.w);    // this block's rows [lo, hi)
+  const int hi = min(lo + sub, shard_lo + a.w);
+  float* sc = a.smem_rows ? (float*)dsm : a.score_s + lo;
+  int* un = a.smem_rows ? (int*)(dsm + (size_t)sub * 4) : a.units_s + lo;
+  const int base = a.s0 * a.w;           // global index of card row 0
   const bool pre = a.mode >= kPhase1;
   if (a.init) {
-    for (int t = lo * 3 + tid; t < hi * 3; t += kThreads) {
+    for (int t = lo * 3 + tid; t < hi * 3; t += kSelThreads) {
       if (pre) {
         a.used_new[t] = 0;
         a.freed[t] = 0;
@@ -134,9 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) shard_score_kernel(ScoreArgs a) {
   const float af1 = (float)ask[1];
   const size_t row = (size_t)g * a.rows;
 
-  float my_s = -INFINITY;
-  int my_i = kNoNode;
-  for (int n = lo + tid; n < hi; n += kThreads) {
+  for (int n = lo + tid; n < hi; n += kSelThreads) {
     const int* c = a.cap + n * 3;
     int ut[3];
     if (pre) {
@@ -173,12 +188,8 @@ __global__ void __launch_bounds__(kThreads, 1) shard_score_kernel(ScoreArgs a) {
       s = score_fit(c[0], c[1], (float)su[0], (float)su[1], af0, af1,
                     a.bias[row + n]);
     if (a.mode == kTopk) {
-      a.score_s[n] = s;
-      a.units_s[n] = units;
-      if (units > 0 && better(s, n, my_s, my_i)) {
-        my_s = s;
-        my_i = n;
-      }
+      sc[n - lo] = s;
+      un[n - lo] = units;
     } else {
       a.g_score[base + n] = s;
       a.g_units[base + n] = units;
@@ -192,43 +203,26 @@ __global__ void __launch_bounds__(kThreads, 1) shard_score_kernel(ScoreArgs a) {
   if (a.mode != kTopk) return;
 
   // top-k: the shard's best unit-bearing rows, best first, into its slot
-  // of the candidate buffer; stop once they cover the group's count
-  const int slot = (a.s0 + blockIdx.x) * a.k;
-  if (tid == 0) covered = 0;
+  // of the candidate buffer, until they cover the group's count
   __syncthreads();
+  const int slot = (a.s0 + shard) * a.k;
   int j = 0;
-  if (count > 0) {
-    for (; j < a.k; ++j) {
-      block_argmax(my_s, my_i, sh_s, sh_i, &best_s, &best_i);
-      const int bi = best_i;
-      if (bi == kNoNode) break;
-      if ((bi - lo) % kThreads == tid) {
-        const int u = a.units_s[bi];
-        a.g_score[slot + j] = best_s;
-        a.g_units[slot + j] = u;
-        a.g_idx[slot + j] = base + bi;
-        covered += u;
-        a.units_s[bi] = 0;
-        my_s = -INFINITY;
-        my_i = kNoNode;
-        for (int n = lo + tid; n < hi; n += kThreads) {
-          if (a.units_s[n] > 0 && better(a.score_s[n], n, my_s, my_i)) {
-            my_s = a.score_s[n];
-            my_i = n;
-          }
-        }
-      }
-      __syncthreads();
-      if (covered >= count) {
-        ++j;
-        break;
-      }
+  long long covered = 0;
+  if (count > 0)
+    j = cluster_select(
+        sh, sc, un, hi - lo, base + lo, count, a.k,
+        [&](int n, const Cand& c, long long) {
+          a.g_score[slot + n] = c.s;
+          a.g_units[slot + n] = c.u;
+          a.g_idx[slot + n] = c.i;
+        },
+        [](const Cand&, int) {}, &covered);
+  if (cluster.block_rank() == 0) {
+    for (int t = j + tid; t < a.k; t += kSelThreads) {
+      a.g_score[slot + t] = -INFINITY;
+      a.g_units[slot + t] = 0;
+      a.g_idx[slot + t] = kNoNode;
     }
-  }
-  for (int t = j + tid; t < a.k; t += kThreads) {
-    a.g_score[slot + t] = -INFINITY;
-    a.g_units[slot + t] = 0;
-    a.g_idx[slot + t] = kNoNode;
   }
 }
 
@@ -248,101 +242,162 @@ struct FillArgs {
   int* assign;            // [gp, rows] or null (top-k mode)
   int* inst;              // [gp, max_count] or null (compact mode)
   int max_count;
-  int* picks;             // scratch [4 * D * k]
+  int* picks;             // compact mode: [gp, 2, D * k] each group's picks
+                          // and takes, then [gp] picks, [gp] instances
+  int gp;
 };
 
 __global__ void __launch_bounds__(kThreads, 1)
 candidate_fill_kernel(FillArgs a) {
-  __shared__ float sh_s[kWarps];
-  __shared__ int sh_i[kWarps];
-  __shared__ int sh_scan[kWarps];
-  __shared__ float best_s;
-  __shared__ int best_i;
-  __shared__ int remaining;
+  __shared__ Cand pool[2 * kSelThreads];
+  Cand* stage = pool;
+  Cand* tmp = pool + kSelThreads;
+  __shared__ int head_pos[kMaxShards];
+  __shared__ int done[kMaxShards];   // entries of each list merged so far
+  __shared__ int stage_len[kMaxShards];
   __shared__ int npicks;
+  __shared__ long long placed;
+  __shared__ int again;
 
   const int tid = threadIdx.x;
   const int g = a.g;
   const int count = a.counts[g];
   const int ask[3] = {a.asks[g * 3 + 0], a.asks[g * 3 + 1], a.asks[g * 3 + 2]};
   const int base = a.s0 * a.w;
-  const int dk = a.d * a.k;
-  int* pick_g = a.picks;
-  int* pick_t = a.picks + dk;
-
-  // thread t < D holds the head of shard t's sorted candidate list
-  int head = 0;
-  float my_s = -INFINITY;
-  int my_i = kNoNode;
-  auto load_head = [&]() {
-    my_s = -INFINITY;
-    my_i = kNoNode;
-    if (tid < a.d && head < a.k) {
-      const int t = tid * a.k + head;
-      if (a.g_units[t] > 0) {
-        my_s = a.g_score[t];
-        my_i = a.g_idx[t];
-      }
+  const size_t dk = (size_t)a.d * a.k;
+  int* pick_g = a.picks + (size_t)g * 2 * dk;
+  int* pick_t = pick_g + dk;
+  // the q-th candidate of the fill places min(units, left) (prior: the
+  // units filled before it); the card applies its own rows' takes
+  auto fill = [&](int q, const Cand& c, long long prior) {
+    const int tk = (int)min((long long)c.u, (long long)count - prior);
+    if (a.inst != nullptr) {
+      pick_g[q] = c.i;
+      pick_t[q] = tk;
+    }
+    const int l = c.i - base;
+    if (l >= 0 && l < a.rows) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        a.used[l * 3 + r] = wrap_add(a.used[l * 3 + r], wrap_mul(tk, ask[r]));
+      if (a.assign != nullptr) a.assign[(size_t)g * a.rows + l] = tk;
     }
   };
-  load_head();
-  if (tid == 0) {
-    remaining = count;
-    npicks = 0;
-  }
-  __syncthreads();
-  int rem = count;
-  while (rem > 0) {
-    block_argmax(my_s, my_i, sh_s, sh_i, &best_s, &best_i);
-    const int bi = best_i;
-    if (bi == kNoNode) break;
-    if (bi / a.w == tid) {
-      const int tk = min(a.g_units[tid * a.k + head], remaining);
-      remaining -= tk;
-      pick_g[npicks] = bi;
-      pick_t[npicks] = tk;
-      npicks += 1;
-      const int l = bi - base;
-      if (l >= 0 && l < a.rows) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r)
-          a.used[l * 3 + r] = wrap_add(a.used[l * 3 + r], wrap_mul(tk, ask[r]));
-        if (a.assign != nullptr) a.assign[(size_t)g * a.rows + l] = tk;
-      }
-      ++head;
-      load_head();
-    }
-    __syncthreads();
-    rem = remaining;
-  }
-  __syncthreads();
-  if (a.inst == nullptr) return;
 
-  // compact emission: the picked nodes in node-index order (each one's
-  // rank among the picks), then one exclusive scan of their takes
-  const int p = npicks;
-  int* sort_g = a.picks + 2 * dk;
-  int* sort_t = a.picks + 3 * dk;
-  for (int i = tid; i < p; i += kThreads) {
-    const int gi = pick_g[i];
-    int rank = 0;
-    for (int q = 0; q < p; ++q) rank += pick_g[q] < gi;
-    sort_g[rank] = gi;
-    sort_t[rank] = pick_t[i];
+  for (int j = tid; j < a.d; j += kThreads) done[j] = 0;
+  if (tid == 0) {
+    npicks = 0;
+    placed = 0;
   }
   __syncthreads();
-  const int chunk = (p + kThreads - 1) / kThreads;
-  const int c0 = min(tid * chunk, p);
-  const int c1 = min(c0 + chunk, p);
-  int local = 0;
-  for (int i = c0; i < c1; ++i) local += sort_t[i];
-  int total = 0;
-  int pos = block_exclusive_scan(local, sh_scan, &total);
-  int* out = a.inst + (size_t)g * a.max_count;
-  for (int i = c0; i < c1; ++i)
-    for (int q = 0; q < sort_t[i] && pos < a.max_count; ++q) out[pos++] = sort_g[i];
-  for (int t = min(total, a.max_count) + tid; t < a.max_count; t += kThreads)
-    out[t] = -1;
+  if (a.d <= kMaxCluster) {
+    // up to 16 lists: a window of 32 entries of each, merged best-32 by
+    // merge_top and cut by take_prefix; a window used up before its
+    // list's end stops the cut, and the next windows are merged
+    do {
+      const int j = tid / kSelM, e = tid % kSelM;
+      if (tid < kMaxCluster) head_pos[tid] = 0;
+      bool real = false;
+      if (tid < kSelThreads) {
+        Cand c = no_cand();
+        const int p = j < a.d ? done[j] + e : a.k;
+        const int at = j * a.k + p;
+        if (p < a.k && a.g_units[at] > 0) {
+          c = Cand{a.g_score[at], a.g_units[at], a.g_idx[at], j};
+          real = true;
+          if (e == kSelM - 1 && p + 1 < a.k && a.g_units[at + 1] > 0)
+            c.o |= kMark;
+        }
+        stage[tid] = c;
+      }
+      const int m = __syncthreads_count(real);
+      merge_top(stage, tmp);
+      if (tid < 32) {
+        int st, li, lt;
+        long long cov;
+        const long long before = placed;
+        const int n0 = npicks;
+        const int n = take_prefix(
+            stage, m, (long long)count - before, 0x7fffffff, head_pos,
+            [&](int q, const Cand& c, long long prior) {
+              fill(n0 + q, c, before + prior);
+            },
+            &st, &cov, &li, &lt);
+        if (tid < a.d) done[tid] += head_pos[tid];
+        if (tid == 0) {
+          npicks = n0 + n;
+          placed = before + cov;
+          again = st == kMergeBlocked ? 1 : 0;
+        }
+      }
+      __syncthreads();
+    } while (again);
+  } else {
+    // more lists: one warp merges windows of them (lane l holds lists l,
+    // l + 32, ...) in order; a window used up before its list's end stops
+    // the merge, and the next windows are staged
+    Cand* window = pool;
+    const int per = max(1, 2 * kSelThreads / a.d);  // entries per list
+    do {
+      for (int j = tid; j < a.d; j += kThreads) stage_len[j] = 0;
+      __syncthreads();
+      for (int t = tid; t < a.d * per; t += kThreads) {
+        const int j = t / per, e = t % per;
+        const int p = done[j] + e;
+        const int at = j * a.k + p;
+        if (p < a.k && a.g_units[at] > 0) {
+          window[t] = Cand{a.g_score[at], a.g_units[at], a.g_idx[at], j};
+          // a list's unit-bearing entries come first: its last one sets
+          // the window's length
+          if (e == per - 1 || p + 1 >= a.k || a.g_units[at + 1] <= 0)
+            stage_len[j] = e + 1;
+        }
+      }
+      __syncthreads();
+      if (tid < 32) {
+        int st;
+        long long cov;
+        const long long before = placed;
+        const int n0 = npicks;
+        const int n = warp_merge(
+            a.d, head_pos,
+            [&](int j, int p, Cand& c) {
+              if (p >= stage_len[j]) return false;
+              c = window[j * per + p];
+              return true;
+            },
+            [&](int j) { return stage_len[j] == per && done[j] + per < a.k; },
+            (long long)count - before, 0x7fffffff,
+            [&](int q, const Cand& c, long long prior) {
+              fill(n0 + q, c, before + prior);
+            },
+            &st, &cov);
+        for (int j = tid; j < a.d; j += 32) done[j] += head_pos[j];
+        if (tid == 0) {
+          npicks = n0 + n;
+          placed = before + cov;
+          again = st == kMergeBlocked ? 1 : 0;
+        }
+      }
+      __syncthreads();
+    } while (again);
+  }
+  if (a.inst != nullptr && tid == 0) {
+    int* counts_out = a.picks + (size_t)a.gp * 2 * dk;
+    counts_out[g] = npicks;
+    counts_out[a.gp + g] = (int)min(placed, (long long)count);
+  }
+}
+
+// compact mode, after the scan: each group's instance row from its picks
+__global__ void shard_inst_kernel(const int* picks, int gp, int dk,
+                                  int* inst, int max_count) {
+  __shared__ int stage[2 * 256];
+  const int g = blockIdx.x;
+  const int* pg = picks + (size_t)g * 2 * dk;
+  const int* counts = picks + (size_t)gp * 2 * dk;
+  emit_instances(pg, pg + dk, __ldcg(counts + g), __ldcg(counts + gp + g),
+                 inst + (size_t)g * max_count, max_count, stage);
 }
 
 enum WaterMode { kWaterFull = 0, kWaterPhase1 = 1, kWaterPhase2 = 2 };
@@ -485,6 +540,78 @@ __global__ void shard_finish_kernel(int preempt, const int* cap,
   over[n] = o ? 1 : 0;
 }
 
+cudaLaunchConfig_t shard_config(int n_shards, int csize, size_t dyn,
+                                cudaLaunchAttribute* attr, void* stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_shards * csize, 1, 1);
+  cfg.blockDim = dim3(kSelThreads, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+struct ShardLaunch {
+  int w;       // rows per shard it was chosen for
+  int csize;   // blocks per cluster
+  int dyn;     // dynamic shared memory: a block's score/units, or 0
+};
+
+// One cluster per shard: the widest of 16, 8, ..., 1 blocks with
+// n_shards * size <= the card's SMs that the card can co-schedule, each
+// block keeping its rows' score and units in shared memory where they
+// fit. Chosen at the first launch for each shard count and width.
+cudaError_t shard_launch(int n_shards, int w, ShardLaunch* out) {
+  static ShardLaunch chosen[kMaxShards + 1] = {};
+  // per device, so set before every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      shard_score_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  ShardLaunch& c = chosen[n_shards];
+  if (c.csize == 0 || c.w != w) {
+    int dev = 0, sms = 0, optin = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, shard_score_kernel);
+    if (e != cudaSuccess) return e;
+    c.csize = 0;
+    for (int csize = kMaxCluster; csize >= 1 && c.csize == 0; csize /= 2) {
+      if (csize > 1 && n_shards * csize > sms) continue;
+      const size_t sub = (size_t)(w + csize - 1) / csize;
+      const size_t dyn =
+          fa.sharedSizeBytes + sub * 8 <= (size_t)optin ? sub * 8 : 0;
+      e = cudaFuncSetAttribute(shard_score_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dyn);
+      if (e != cudaSuccess) return e;
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t cfg = shard_config(n_shards, csize, dyn, attr,
+                                            nullptr);
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(
+          &clusters, (const void*)shard_score_kernel, &cfg);
+      if (e != cudaSuccess) return e;
+      if (clusters >= 1) c = ShardLaunch{w, csize, (int)dyn};
+    }
+    if (c.csize == 0) return cudaErrorLaunchOutOfResources;
+  }
+  *out = c;
+  return cudaFuncSetAttribute(shard_score_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              c.dyn);
+}
+
 }  // namespace
 
 extern "C" int nomad_shard_score(
@@ -499,17 +626,37 @@ extern "C" int nomad_shard_score(
               counts,  feas,   bias,    ucap,    assign,  evict,   score_s,
               units_s, g_score, g_units, g_idx,  n_shards * w, w,  s0,
               k};
-  shard_score_kernel<<<n_shards, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (n_shards < 1 || n_shards > kMaxShards)
+    return (int)cudaErrorInvalidValue;
+  ShardLaunch l;
+  cudaError_t e = shard_launch(n_shards, w, &l);
+  if (e != cudaSuccess) return (int)e;
+  a.smem_rows = l.dyn > 0 ? 1 : 0;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = shard_config(n_shards, l.csize, l.dyn, attr,
+                                        stream);
+  e = cudaLaunchKernelEx(&cfg, shard_score_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The cluster size shard_score uses for n_shards shards of w rows on this
+// card, negative where a block's rows do not fit in shared memory.
+extern "C" int nomad_shard_cluster(int n_shards, int w) {
+  ShardLaunch l;
+  if (n_shards < 1 || n_shards > kMaxShards) return 0;
+  if (shard_launch(n_shards, w, &l) != cudaSuccess) return 0;
+  return l.dyn > 0 ? l.csize : -l.csize;
 }
 
 extern "C" int nomad_candidate_fill(
     int g, const int* asks, const int* counts, const float* g_score,
     const int* g_units, const int* g_idx, int d, int k, int w, int s0,
     int rows, int* used, int* assign, int* inst, int max_count, int* picks,
-    void* stream) {
-  FillArgs a{g, asks, counts, g_score, g_units, g_idx, d,   k,
-             w, s0,   rows,   used,    assign,  inst,  max_count, picks};
+    int gp, void* stream) {
+  FillArgs a{g,  asks,  counts,    g_score, g_units, g_idx,
+             d,  k,     w,         s0,      rows,    used,
+             assign, inst, max_count, picks, gp};
   candidate_fill_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -531,10 +678,14 @@ extern "C" int nomad_shard_finish(int preempt, const int* cap,
                                   const int* used_in, const int* used,
                                   const int* freed, const int* used_new,
                                   int* used_out, uint8_t* over, int rows,
-                                  void* stream) {
+                                  const int* picks, int gp, int dk,
+                                  int* inst, int max_count, void* stream) {
   const int threads = 256;
   const int blocks = (rows + threads - 1) / threads;
   shard_finish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       preempt, cap, used_in, used, freed, used_new, used_out, over, rows);
+  if (inst != nullptr && gp > 0)
+    shard_inst_kernel<<<gp, threads, 0, (cudaStream_t)stream>>>(
+        picks, gp, dk, inst, max_count);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,8 @@ falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import libkernels
@@ -92,20 +94,81 @@ def pad_c(c: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def fma_f32(a, b, c):
+    """a * b + c on f32 tensors with one rounding, as a fused multiply-add
+    (the card's __fmaf_rn) rounds it. The f32 product is exact in f64;
+    the f64 sum is rounded to odd (TwoSum gives its error, and an inexact
+    sum whose last bit is even moves one f64 ulp toward the exact value),
+    so the final f64 -> f32 rounding cannot round twice."""
+    p = a.double() * b.double()
+    cd = c.double().expand_as(p)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    even = (s.view(torch.int64) & 1) == 0
+    return torch.where((err != 0) & even, odd, s).float()
+
+
+# Cephes expf: the exp XLA's CPU backend emits for f32, which jnp.exp
+# (and so _score_nodes) computes bit for bit
+_EXP_CLAMP = 88.3762626647949
+_LOG2E = 1.44269504088896341
+_EXP_C1 = -0.693359375
+_EXP_C2 = 2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _pow2(e):
+    """2.0 ** e as f32 for integer tensors e in [-126, 127]."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def xla_exp(x):
+    """f32 exp rounded as XLA's CPU backend rounds it: clamp, fx =
+    floor(x*log2e + 0.5), a two-step fused reduction, the degree-5
+    Horner polynomial with a fused step at each term, ldexp, and results
+    below the smallest normal flushed to zero (XLA runs with denormals
+    off). csrc/solve_common.cuh xla_expf is the same arithmetic."""
+    x = torch.clamp(x, -_EXP_CLAMP, _EXP_CLAMP)
+    fx = torch.floor(x * _f32(_LOG2E, x) + _f32(0.5, x))
+    r = fma_f32(fx, _f32(_EXP_C1, x), x)
+    r = fma_f32(fx, _f32(_EXP_C2, x), r)
+    y = _f32(_EXP_POLY[0], x).expand_as(r)
+    for p in _EXP_POLY[1:]:
+        y = fma_f32(y, r, _f32(p, x))
+    y = fma_f32(y, r * r, r) + _f32(1.0, x)
+    # ldexp(y, fx) as two exact power-of-two factors built from their bits
+    # (fx >= -127 after the clamp): one rounding, and no pow on the card
+    e = fx.to(torch.int32)
+    half = torch.div(e, 2, rounding_mode="floor")
+    out = y * _pow2(half) * _pow2(e - half)
+    return torch.where(out < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(out), out)
+
+
 def score_nodes(cap_f, used_f, ask_f, bias_g):
     """Vectorized ScoreFitBinPack after hypothetically adding one instance
-    (nomad_tpu kernels._score_nodes, term for term, in f32).
+    (nomad_tpu kernels._score_nodes), rounded as XLA compiles it: its exp
+    (xla_exp), and the tail clip(20 - total, 0, 18) / 18 + bias computed
+    as one fused multiply-add by f32(1/18), as XLA rewrites it.
 
     cap_f/used_f: [N, R] f32; ask_f: [R] f32; bias_g: [N] f32 -> [N] f32.
     """
-    one = torch.tensor(1.0, dtype=torch.float32, device=cap_f.device)
-    ln10 = torch.tensor(LN10, dtype=torch.float32, device=cap_f.device)
+    one = _f32(1.0, cap_f)
+    ln10 = _f32(LN10, cap_f)
     util = used_f + ask_f[None, :]
     safe_cap = torch.maximum(cap_f, one)
     free = one - util / safe_cap  # [N, R]
-    total = torch.exp(free[:, 0] * ln10) + torch.exp(free[:, 1] * ln10)
-    score = torch.clamp(20.0 - total, 0.0, 18.0) / 18.0
-    return score + bias_g
+    total = xla_exp(free[:, 0] * ln10) + xla_exp(free[:, 1] * ln10)
+    clipped = torch.clamp(20.0 - total, 0.0, 18.0)
+    return fma_f32(clipped, _f32(1.0 / 18.0, cap_f), bias_g)
 
 
 def unpack_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -257,29 +320,38 @@ def solve_placement_compact(
     for name, t in (("feas_idx", feas_idx), ("bias_idx", bias_idx),
                     ("ucap_idx", ucap_idx)):
         _expect(t, name, i32, (gp,), dev)
+    k = min(max_count, np_)
     inst = torch.empty((gp, max_count), dtype=i32, device=dev)
     over = torch.empty((np_,), dtype=torch.bool, device=dev)
     used_out = torch.empty((np_, 3), dtype=i32, device=dev)
     score = torch.empty((np_,), dtype=torch.float32, device=dev)
     units = torch.empty((np_,), dtype=i32, device=dev)
-    take = torch.empty((np_,), dtype=i32, device=dev)
+    # each group's picks and takes [Gp, k], picks and instances per group
+    picks = torch.empty((2 * gp * k + 2 * gp,), dtype=i32, device=dev)
+    info = (ctypes.c_int * 4)()
     lib = libkernels.library()
     code = lib.nomad_solve_compact(
         cap.data_ptr(), used.data_ptr(), asks.data_ptr(), counts.data_ptr(),
         feas_packed.data_ptr(), feas_idx.data_ptr(), bias_rows.data_ptr(),
         bias_idx.data_ptr(), ucap_rows.data_ptr(),
         int(ucap_rows.dtype == torch.int16), ucap_idx.data_ptr(),
-        np_, gp, max_count, min(max_count, np_),
-        score.data_ptr(), units.data_ptr(), take.data_ptr(),
+        np_, gp, max_count, k,
+        score.data_ptr(), units.data_ptr(), picks.data_ptr(),
         inst.data_ptr(), over.data_ptr(), used_out.data_ptr(),
-        _stream_ptr(dev),
+        info, _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement_compact")
     solve_placement_compact.launches += 1
+    solve_placement_compact.last_launch = {
+        "cluster": info[0], "smem_slices": bool(info[1]),
+        "slice": info[2], "smem_bytes": info[3],
+    }
     return inst, over, used_out
 
 
 solve_placement_compact.launches = 0
+# the cluster size and slice placement the last launch chose
+solve_placement_compact.last_launch = None
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +760,8 @@ def sharded_solver_preempt_plain(cap, used_exist, prefix_used, asks, counts,
     return takes, takes_evict, used_exist - freed + used_new
 
 
-# The candidate fill holds one shard's list head per thread of its block.
+# The candidate fill keeps a list head per shard in shared memory
+# (csrc/solve_sharded.cu kMaxShards).
 MAX_SHARDS = 1024
 
 
@@ -794,7 +867,7 @@ def sharded_solver(cap, used, asks, counts, feas, bias, units_cap, *,
     On CUDA each scan step launches, per card, the shard scoring
     (csrc/solve_sharded.cu) and then the candidate fill (top-k modes) or
     the gathered waterfill (full mode); compact mode adds one pass for
-    `over`. A CPU tensor runs sharded_solver_plain."""
+    `over` and the instance rows. A CPU tensor runs sharded_solver_plain."""
     if not isinstance(cap, (list, tuple)) and cap.device.type == "cpu":
         return sharded_solver_plain(
             cap, used, asks, counts, feas, bias, units_cap,
@@ -832,7 +905,9 @@ def sharded_solver(cap, used, asks, counts, feas, bias, units_cap, *,
             c["g_idx"] = empty((dk,))
             c["score_s"] = empty((rows,), torch.float32)
             c["units_s"] = empty((rows,))
-            c["picks"] = empty((4 * dk,))
+            # compact mode: each group's picks and takes, then per group
+            # the picks and the instances placed
+            c["picks"] = empty((gp * 2 * dk + 2 * gp,)) if compact else None
     fn = sharded_solver
     for g in range(gp):
         for c in cards:
@@ -863,14 +938,16 @@ def sharded_solver(cap, used, asks, counts, feas, bias, units_cap, *,
                         _ptr(c["g_score"]), _ptr(c["g_units"]),
                         _ptr(c["g_idx"]), n_shards, k, w, c["s0"],
                         c["rows"], _ptr(c["out"]), _ptr(c["assign"]),
-                        _ptr(c["inst"]), max_count or 0, _ptr(c["picks"]))
+                        _ptr(c["inst"]), max_count or 0, _ptr(c["picks"]),
+                        gp)
     used_out = _joined([c["out"] for c in cards], cap)
     if not compact:
         return _joined([c["assign"] for c in cards], cap), used_out
     for c in cards:
         _launch(fn, "nomad_shard_finish", c["dev"], 0, _ptr(c["cap"]),
                 _ptr(c["used"]), _ptr(c["out"]), None, None, None,
-                _ptr(c["over"]), c["rows"])
+                _ptr(c["over"]), c["rows"], _ptr(c["picks"]), gp,
+                n_shards * k, _ptr(c["inst"]), max_count)
     # inst is replicated: every card wrote the same rows
     return cards[0]["inst"], _joined([c["over"] for c in cards], cap), used_out
 
@@ -945,7 +1022,7 @@ def sharded_solver_preempt(cap, used_exist, prefix_used, asks, counts, feas,
     for c in cards:
         _launch(fn, "nomad_shard_finish", c["dev"], 1, _ptr(c["cap"]),
                 _ptr(c["used"]), None, _ptr(c["freed"]), _ptr(c["used_new"]),
-                _ptr(c["out"]), None, c["rows"])
+                _ptr(c["out"]), None, c["rows"], None, 0, 0, None, 0)
     return (_joined([c["assign"] for c in cards], cap),
             _joined([c["evict"] for c in cards], cap),
             _joined([c["out"] for c in cards], cap))

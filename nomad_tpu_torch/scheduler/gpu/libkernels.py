@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # --fmad=false and IEEE division: the placement score must round exactly
-# as the reference kernel's does (csrc/solve_compact.cu). No fast math.
+# as the reference kernel's does, with its fused steps written out as
+# __fmaf_rn (csrc/solve_common.cuh). No fast math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -128,9 +129,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p,      # feas_packed, feas_idx, bias_rows, bias_idx
         p, i, p,         # ucap_rows, ucap_i16, ucap_idx
         i, i, i, i,      # np, gp, max_count, k
-        p, p, p,         # score, units, take scratch
+        p, p, p,         # score, units, pick scratch
         p, p, p,         # inst, over, used_out
-        p,               # stream
+        p, p,            # launch info (host), stream
     ]
     lib.nomad_solve_compact.restype = i
     lib.nomad_solve_dense.argtypes = [
@@ -164,12 +165,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,               # stream
     ]
     lib.nomad_shard_score.restype = i
+    lib.nomad_shard_cluster.argtypes = [i, i]  # shards on the card, w
+    lib.nomad_shard_cluster.restype = i
     lib.nomad_candidate_fill.argtypes = [
         i, p, p,         # g, asks, counts
         p, p, p,         # gathered score, units, index
         i, i, i, i, i,   # d, k, w, first shard, rows
         p, p, p, i, p,   # used, assign, inst, max_count, picks scratch
-        p,               # stream
+        i, p,            # gp, stream
     ]
     lib.nomad_candidate_fill.restype = i
     lib.nomad_gathered_waterfill.argtypes = [
@@ -186,7 +189,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nomad_shard_finish.argtypes = [
         i, p, p, p,      # preempt, cap, used_in, used
         p, p, p, p,      # freed, used_new, used_out, over
-        i, p,            # rows, stream
+        i,               # rows
+        p, i, i, p, i,   # picks, gp, D*k, inst, max_count (compact mode)
+        p,               # stream
     ]
     lib.nomad_shard_finish.restype = i
     for name in ("nomad_scatter_rows", "nomad_scatter_add_rows"):

@@ -9,10 +9,11 @@ their plain twins. Every comparison is exact
 (np.testing.assert_array_equal). The CUDA kernels run only on the card
 and are held against these same twins by chip_smoke.py.
 
-The twins' f32 scores come from torch's CPU exp, XLA's from its own; the
-two differ by an ulp on some nodes (ROADMAP.md C). _c1k_problem seed 35
-holds a near-tie that this gap flips (the port's single-card K4 twin
-flips it too), so it is held against the port's own twins only.
+The twins' f32 scores round as XLA's do (kernels.xla_exp and the fused
+score tail), so a near-tie falls the same way in both packages:
+_c1k_problem seed 35, whose group 45 a one-ulp exp gap once flipped, is
+held against nomad_tpu's dense and sharded solvers in every mode, and
+against the port's own single-card twins.
 """
 
 import logging
@@ -185,6 +186,26 @@ def test_sharded_twin_matches_port_single_card_twins(n_dev):
                             compact=True)
     for w, g in zip(compact, got):
         assert torch.equal(w, g)
+
+
+def test_seed_35_dense_twin_matches_reference():
+    """_c1k_problem seed 35 through K4's twin and nomad_tpu's
+    solve_placement: group 45 holds a near-tie that an ulp of exp flips."""
+    a = _c1k_problem(np.random.default_rng(35))
+    ref = jk.solve_placement(*a)
+    got = tk.solve_placement(*_t(a))
+    _assert_same(ref, got, ("assign", "used'"))
+    assert int(np.asarray(ref[0])[45].sum()) > 0
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["full", "topk", "compact"])
+def test_seed_35_sharded_twin_matches_reference(mode, n_dev):
+    """The same near-tie through the K6 twins and nomad_tpu's
+    make_sharded_solver, in every mode and mesh size."""
+    a = _c1k_problem(np.random.default_rng(35))
+    ref, got, _ = _k6_both(a, n_dev, mode)
+    _assert_same(ref, got, _names(mode))
 
 
 @pytest.mark.parametrize("n_dev", [3, 5, 8])
