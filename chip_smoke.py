@@ -18,7 +18,13 @@ Phases (one JSON line each, with its seconds):
                 dense and the preemption solves at the preempt wave's
                 bucket (10240 nodes, 80 groups, 4 tier rows) on seeded
                 random, all-tied and negative-free inputs and with tier
-                limits at, past and before the padded tier row; the row
+                limits at, past and before the padded tier row, and the
+                preemption solve's select edges (preempt_edge_cases:
+                counts past every unit, no phase-2 remainder, negative
+                tier limits, one-unit tied nodes; Np 100352 with K5's
+                slices in global memory), each also through the 8-shard
+                solve, whose cached CUDA graph replays other inputs than
+                it was captured on; the row
                 set-scatter (donated and not) and the clamped row
                 scatter-add, with pad indices and negative deltas;
   3. main     — the batch solve path at c2m scale through the entry
@@ -57,7 +63,11 @@ Phases (one JSON line each, with its seconds):
                 twin, and timed beside its bound and the twin's time: a
                 kernel's `ms` is its device time (CUDA events around
                 back-to-back launches queued behind a spin kernel) and
-                `enqueue_ms` the host's time to queue one call;
+                `enqueue_ms` the host's time to queue one call; K5's and
+                K7's device time split by kernel must show the radix
+                select's kernels and no pick loop, and K7's timed calls
+                must replay its CUDA graph (`launch_route`,
+                `graph_replays`, `capture_s`);
   7. small    — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, and bench.py's 500-node preempt config,
                 on the card and on the CPU twins: identical placements
@@ -342,6 +352,81 @@ def compact_cases(rng) -> list:
     ]
 
 
+def preempt_edge_cases(rng) -> list:
+    """(name, K5 arguments) where the preemption solve's radix select can
+    go wrong, at the preempt wave's bucket with 16 groups: counts past
+    every unit a group can take (the shortcut, in both phases); low usage
+    and small counts (phase 1 places everything, no phase 2); tier limits
+    from -8 to -1 (wrapped from the end, then clamped); all scores tied
+    with unit caps of 1 (the boundary inside a run of one-unit nodes); and
+    Np 100352 (c2m_sharded's bucket), where K5's slices do not fit in
+    shared memory."""
+    cases = []
+    _, k5 = dense_problem(rng, g=16)
+    k5[4] = np.full_like(k5[4], 1_000_000)
+    cases.append(("count_past_units", k5))
+    _, k5 = dense_problem(rng, g=16)
+    k5[1] = (k5[0] * 0.3).astype(np.int32)
+    k5[4] = rng.integers(1, 200, k5[4].shape).astype(np.int32)
+    cases.append(("no_phase2", k5))
+    _, k5 = dense_problem(rng, g=16)
+    k5[8] = rng.integers(-8, 0, k5[8].shape).astype(np.int32)
+    cases.append(("negative_tier", k5))
+    _, k5 = dense_problem(rng, g=16, tied=True)
+    k5[7] = np.ones_like(k5[7])
+    cases.append(("tied_one_unit", k5))
+    _, k5 = dense_problem(rng, n=100352, g=8)
+    cases.append(("np100352", k5))
+    return cases
+
+
+def preempt_edge_checks(dev, rng) -> None:
+    """K5 and K7 (8 shards, one card) against their twins on
+    preempt_edge_cases, with what each case is for checked on the twin's
+    outputs; then the first case again through K7's cached graph, which
+    has replayed the other cases' inputs since (stale static buffers
+    would show)."""
+    variants, routes, first = set(), [], None
+    for name, arrays in preempt_edge_cases(rng):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        want = tk.solve_placement_preempt_plain(*t)
+        got = tk.solve_placement_preempt(*t)
+        torch.cuda.synchronize()
+        launch = tk.solve_placement_preempt.last_launch
+        check(max_abs_err(got, want) == 0,
+              f"preempt {name}: K5 differs from its twin (launch {launch})")
+        variants.add(launch["smem_slices"])
+        got = tk.sharded_solver_preempt(*t, n_shards=8)
+        torch.cuda.synchronize()
+        routes.append((t[0].shape[0], tk.sharded_solver_preempt.last_route))
+        check(max_abs_err(got, tk.sharded_solver_preempt_plain(
+            *t, n_shards=8)) == 0, f"sharded preempt {name}: K7 differs "
+            "from its twin")
+        assign, evict = want[0], want[1]
+        counts = t[4]
+        if name == "count_past_units":
+            check(bool((assign.sum(dim=1) < counts).all()),
+                  "count_past_units: a group placed its whole count")
+        if name == "no_phase2":
+            check(int(evict.sum()) == 0
+                  and bool((assign.sum(dim=1) == counts).all()),
+                  "no_phase2: phase 1 left a remainder")
+        check(int(assign.sum()) > 0, f"preempt {name}: placed nothing")
+        first = first or (t, want)
+    check(variants == {True, False},
+          "K5's shared- and global-memory slice variants were not both run")
+    t, want = first
+    got = tk.sharded_solver_preempt(*t, n_shards=8)
+    torch.cuda.synchronize()
+    check(tk.sharded_solver_preempt.last_route == "graph_replay"
+          and max_abs_err(got, want) == 0,
+          "K7's graph replayed on its first inputs again differs")
+    at_bucket = [r for n, r in routes if n == t[0].shape[0]]
+    check(at_bucket[0] in ("graph_capture", "graph_replay")
+          and all(r == "graph_replay" for r in at_bucket[1:]),
+          f"K7 routes {routes}: the cases did not share one graph")
+
+
 def kernel_checks(dev, seed: int) -> list:
     """Each kernel against its twin on seeded inputs at the c2m bucket.
     Returns K4's arguments from the random dense case, a call that
@@ -400,6 +485,7 @@ def kernel_checks(dev, seed: int) -> list:
     check(bool((got == 0).any()), "scatter_add_rows: clamp not exercised")
     torch.cuda.synchronize()
     mesh_kernel_checks(dev, rng)
+    preempt_edge_checks(dev, rng)
     return placing
 
 
@@ -913,7 +999,11 @@ def preempt_on_mesh(on_phase) -> dict:
         solve_s[label] = time.perf_counter() - t
         out[label] = (plans, evs, preempt_outcome(h, plans, evs))
     launches = {fn.__name__: fn.launches for fn in tk.KERNELS}
+    route = tk.sharded_solver_preempt.last_route
+    replays = tk.sharded_solver_preempt.graph_replays
     rec.restore()
+    check(route in ("graph_capture", "graph_replay") and replays == 1,
+          f"K7 on one card took the {route} route ({replays} replays)")
     ref, got = out["single_card"][2], out["d8"][2]
     for k in ("placed", "preempted_by", "victims", "unplaced"):
         check(got[k] == ref[k], f"preempt wave on the mesh differs in {k}")
@@ -924,10 +1014,16 @@ def preempt_on_mesh(on_phase) -> dict:
     commit(h, plans, evs)
     res["h"] = h
     check_preempt(res, 20 * 1000, {65: 25 * 900})
+    # the wave's graph, captured by its first solve of this shape
+    a = rec.first[0]
+    capture_s = tk.sharded_solver_preempt.graphs[
+        (a[0].shape[0], a[3].shape[0], a[2].shape[0], 8,
+         a[0].device.index)]["capture_s"]
     on_phase("mesh.preempt_wave", t0, solve_s=solve_s, launches=launches,
-             placed=len(got["placed"]), evicted=len(got["victims"]))
+             placed=len(got["placed"]), evicted=len(got["victims"]),
+             route=route, capture_s=capture_s)
     return {"launches": launches["sharded_solver_preempt"], "rec": rec,
-            "solves": 1}
+            "solves": 1, "graph_replays": replays, "capture_s": capture_s}
 
 
 class Recorder:
@@ -950,6 +1046,12 @@ class Recorder:
         outs = out if isinstance(out, tuple) else (out,)
         self.tensors.extend(tensors + list(outs))
         return out
+
+    def __getattr__(self, attr):
+        # the wrapper's own state (launch counts, route), read through
+        if attr == "real":
+            raise AttributeError(attr)
+        return getattr(self.real, attr)
 
     def restore(self) -> None:
         setattr(self.mod, self.name, self.real)
@@ -1069,8 +1171,14 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
     ops = (int(live.sum()) + int(phase2.sum())) * np_ * SCORE_FLOPS
     ms, enq = device_ms(lambda: tk.solve_placement_preempt(*args), 10)
     plain_ms = time_ms(lambda: tk.solve_placement_preempt_plain(*args), 3)
+    split = device_split_ms(lambda: tk.solve_placement_preempt(*args))
+    check("solve_preempt_kernel" in split
+          and "solve_dense_kernel" not in split,
+          f"K5 did not run the radix-select kernel alone: {split}")
     out.append(entry("solve_placement_preempt", launches, err, ms, plain_ms,
                      nbytes(*args, *got), ops, None, enqueue_ms=enq,
+                     launch=tk.solve_placement_preempt.last_launch,
+                     kernel_split_ms=split,
                      shape={"np": np_, "gp": asks.shape[0],
                             "tp": prefix.shape[0],
                             "live_groups": int(live.sum()),
@@ -1165,13 +1273,37 @@ def replay_mesh(paths: dict, launches: dict) -> list:
                      "evicting": int(evict.sum())}
         # the calls queued behind the spin kernel must fit the card's
         # queue of pending launches (about a thousand), or the host blocks
-        # until the spin ends: K7 makes 321 launches a call
-        reps = max(1, min(5, 512 // per_solve))
+        # until the spin ends: K6 makes 33 launches a call; a replay of
+        # K7's graph queues one graph and its copies
+        graph = name == "sharded_solver_preempt"
+        reps = 5 if graph else max(1, min(5, 512 // per_solve))
+        replays = tk.sharded_solver_preempt.graph_replays
         ms, enq = device_ms(lambda: fn(*args, **kw), reps)
         plain_ms = time_ms(lambda: plain(*args, **kw), 3)
         extra = {"kernel_split_ms": device_split_ms(lambda: fn(*args, **kw)),
                  "shard_cluster": libkernels.library().nomad_shard_cluster(
                      kw["n_shards"], cap.shape[0] // kw["n_shards"])}
+        if graph:
+            route = tk.sharded_solver_preempt.last_route
+            check(route == "graph_replay",
+                  f"K7's timed calls took the {route} route")
+            split = extra["kernel_split_ms"]
+            check("gathered_select_kernel" in split
+                  and "gathered_waterfill_kernel" not in split,
+                  f"K7 did not run the radix select alone: {split}")
+            entry_ = tk.sharded_solver_preempt.graphs[
+                (cap.shape[0], asks.shape[0], prefix.shape[0],
+                 kw["n_shards"], cap.device.index)]
+            replay_ms, replay_enq = device_ms(entry_["graph"].replay, reps)
+            extra.update(
+                launch_route=route,
+                graph_replays=tk.sharded_solver_preempt.graph_replays
+                - replays,
+                graph_replays_on_path=paths[name]["graph_replays"],
+                capture_s=paths[name]["capture_s"],
+                graph_only_ms=replay_ms, graph_only_enqueue_ms=replay_enq,
+                water_cluster=libkernels.library().nomad_water_cluster(
+                    cap.shape[0]))
         if name == "sharded_solver":
             # the same call with every row in one shard
             one = dict(kw, n_shards=1)

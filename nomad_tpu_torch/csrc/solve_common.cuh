@@ -271,13 +271,21 @@ __device__ int warp_merge(int L, int* pos, Head head, Trunc trunc,
   return out;
 }
 
+// A score's bits in an order-preserving form: a larger score has the
+// larger value, and -0.0 has +0.0's, as better() and a sort compare them
+// equal. 0 is below every score's.
+__device__ __forceinline__ unsigned score_bits(float s) {
+  unsigned b = __float_as_uint(s);
+  if ((b << 1) == 0) b = 0;  // -0.0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
 // (score desc, index asc) as one unsigned key, larger is better: the
-// score's bits in an order-preserving form above the complemented index.
-// 0 is below every node's key.
+// score's bits (score_bits) above the complemented index. 0 is below
+// every node's key.
 __device__ __forceinline__ unsigned long long cand_key(float s, int i) {
-  const unsigned b = __float_as_uint(s);
-  const unsigned hi = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)i);
+  return ((unsigned long long)score_bits(s) << 32) |
+         (0xffffffffu - (unsigned)i);
 }
 __device__ __forceinline__ float key_score(unsigned long long k) {
   const unsigned hi = (unsigned)(k >> 32);
@@ -732,6 +740,327 @@ __device__ int cluster_select(SelectShared& sh, const float* sc, int* un,
   }
   *covered_out = covered;
   return picks;
+}
+
+
+// ---------------------------------------------------------------------------
+// The waterfill as a unit-weighted radix select (K5, K7's preemption phases)
+// ---------------------------------------------------------------------------
+//
+// The full waterfill (kernels.py _waterfill) sorts the nodes by (score
+// desc, index asc), takes the int32 cumsum `prior` of their units in that
+// order and gives each take = clamp(count - prior, 0, units). Only one
+// node takes part of its units: the boundary b, the first whose prior +
+// units reaches count. Nodes before it take all, nodes after it none. So
+// the waterfill is a search for b, weighted by units, and needs no sort and
+// no pick per node: a radix select from the score's top digit.
+//   * Each unit-bearing node has the key score_bits(score) and the weight
+//     units; a node without units drops out.
+//   * Round 0 gathers each block's units and its lowest and highest key.
+//     If all units fit the count, every node takes all its units (the
+//     shortcut). If every key is the same, the nodes share the count in
+//     node-index order and the select ends here. Otherwise the radix
+//     passes start at the first 8-bit digit where the lowest and highest
+//     keys differ; the digits above it are the same in every key.
+//   * Pass p builds the cluster's histogram of digit p over the nodes whose
+//     higher digits equal the prefix fixed so far: each block adds its
+//     nodes into its own 256 bins (shared atomics), then
+//     its nonzero bins into the leader's (distributed shared memory). The
+//     leader scans them from the top digit down with the need still open,
+//     fixes the digit where the units above reach the need, and writes the
+//     outcome (the prefix, the need left) into every block's shared memory.
+//     If the fixed digit's bin holds exactly the need, every node from that
+//     bin up takes all.
+//   * After the last digit the boundary key is known and the need is what
+//     the nodes tied at it share: they take it in node-index order, from an
+//     index-ordered prefix sum of their units across the cluster's slices
+//     (blocks hold contiguous slices in rank order; the leader sends each
+//     block the tied units of the blocks before it).
+// Rounds 0 and the tie round are one cluster barrier each: every block
+// stores its part into every block's shared memory (double-buffered by
+// round parity, so a round's stores never meet the previous round's
+// reads) and each block decides alone. A radix pass is two: the blocks'
+// bins go to the leader only, which scans them and stores the outcome
+// into every block. When every block read the leader's bins through
+// distributed shared memory instead, the leader's SM served 15 x 2 KB a
+// pass and a pass cost ~9,000 cycles (PERF.md, PR 5).
+// Weights are summed in 64 bits, so the takes are the reference's wherever
+// its int32 cumsum does not wrap (every unit total below 2^31, the domain
+// where the pick loop this replaces agreed with it too).
+
+constexpr int kBins = 256;
+
+struct WaterShared {
+  unsigned long long hist[kBins];   // the leader's: the cluster's bins
+  unsigned long long local[kBins];  // this block's bins of the pass
+  unsigned long long warp_sum[32];  // block scans
+  unsigned warp_lo[32];
+  unsigned warp_hi[32];
+  // every block's units (round 0) or tied units, and its lowest and
+  // highest key (round 0), stored by that block; [round parity][rank]
+  unsigned long long part[2][kMaxCluster];
+  unsigned part_lo[2][kMaxCluster];
+  unsigned part_hi[2][kMaxCluster];
+  // a radix pass's outcome, stored by the leader
+  unsigned long long need;  // the need left at the fixed prefix
+  unsigned prefix;          // the fixed prefix, or the cut (kSelCut)
+  int mode;
+};
+
+enum SelectMode { kSelRun = 0, kSelCut = 1, kSelTie = 2 };
+
+// Zeroes the select's bins; then the cluster's barrier. Every thread of
+// every block of the cluster calls it once, before the first
+// cluster_waterfill.
+static __device__ void waterfill_init(WaterShared& ws) {
+  for (int t = threadIdx.x; t < 2 * kBins; t += blockDim.x)
+    (&ws.hist[0])[t] = 0;
+  cooperative_groups::this_cluster().sync();
+}
+
+// The local nodes [l0, l1) this thread owns: contiguous runs in thread
+// order, so an index-ordered scan follows the threads.
+__device__ __forceinline__ void own_range(int n_loc, int& l0, int& l1) {
+  const int per = (n_loc + (int)blockDim.x - 1) / (int)blockDim.x;
+  l0 = min((int)threadIdx.x * per, n_loc);
+  l1 = min(l0 + per, n_loc);
+}
+
+// Adds each lane's w into bins[d] (d == kBins: none, with w 0). Every lane
+// calls it. A warp whose lanes share one digit (a run of tied scores) adds
+// once, so ties do not serialise 32 atomics on one bin; other warps add
+// lane by lane.
+__device__ __forceinline__ void warp_bin_add(unsigned long long* bins,
+                                             unsigned d, unsigned w) {
+  const unsigned active = __ballot_sync(0xffffffffu, d < kBins);
+  if (active == 0) return;
+  const int first = __ffs(active) - 1;
+  const unsigned d0 = __shfl_sync(0xffffffffu, d, first);
+  if (__all_sync(0xffffffffu, d == d0 || d == kBins)) {
+    // two 16-bit halves: 32 lanes of up to 2^31 - 1 do not fit 32 bits
+    const unsigned lo = __reduce_add_sync(0xffffffffu, w & 0xffffu);
+    const unsigned hi = __reduce_add_sync(0xffffffffu, w >> 16);
+    if ((int)(threadIdx.x & 31) == first)
+      atomicAdd(&bins[d0], ((unsigned long long)hi << 16) + lo);
+  } else if (d < kBins) {
+    atomicAdd(&bins[d], (unsigned long long)w);
+  }
+}
+
+// Inclusive warp scan of x.
+__device__ __forceinline__ unsigned long long warp_incl(unsigned long long x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// The block's exclusive scan of each thread's x, in thread order (every
+// thread calls it); *total gets the block's sum.
+__device__ __forceinline__ unsigned long long block_excl(
+    WaterShared& ws, unsigned long long x, unsigned long long* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned long long incl = warp_incl(x);
+  if (lane == 31) ws.warp_sum[warp] = incl;
+  __syncthreads();
+  unsigned long long before = 0, sum = 0;
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+    if (w < warp) before += ws.warp_sum[w];
+    sum += ws.warp_sum[w];
+  }
+  *total = sum;
+  return before + incl - x;
+}
+
+// Thread r < blocks stores this block's part into block r's parts of this
+// parity (every thread calls it); then the cluster's barrier.
+__device__ __forceinline__ void share_part(WaterShared& ws, int parity,
+                                           unsigned long long units,
+                                           unsigned lo, unsigned hi) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  if ((int)threadIdx.x < (int)cluster.num_blocks()) {
+    WaterShared* dst = cluster.map_shared_rank(&ws, threadIdx.x);
+    dst->part[parity][rank] = units;
+    dst->part_lo[parity][rank] = lo;
+    dst->part_hi[parity][rank] = hi;
+  }
+  cluster.sync();
+}
+
+template <class Apply>
+__device__ long long cluster_waterfill(WaterShared& ws, int& rounds,
+                                       const float* sc, const int* un,
+                                       int n_loc, long long need,
+                                       Apply apply) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nblk = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int per = (n_loc + nt - 1) / nt;
+  int l0, l1;
+  own_range(n_loc, l0, l1);
+  WaterShared* lead = cluster.map_shared_rank(&ws, 0);
+  __syncthreads();  // the block's sc/un are written
+  if (need <= 0) {
+    for (int l = l0; l < l1; ++l) apply(l, 0);
+    return 0;
+  }
+  const unsigned long long count = (unsigned long long)need;
+
+  // round 0: each block's units and its lowest and highest key
+  unsigned long long mine = 0;
+  unsigned lo_b = 0xffffffffu, hi_b = 0;
+  for (int l = l0; l < l1; ++l) {
+    if (un[l] > 0) {
+      const unsigned b = score_bits(sc[l]);
+      mine += (unsigned)un[l];
+      lo_b = min(lo_b, b);
+      hi_b = max(hi_b, b);
+    }
+  }
+  lo_b = __reduce_min_sync(0xffffffffu, lo_b);
+  hi_b = __reduce_max_sync(0xffffffffu, hi_b);
+  if (lane == 0) {
+    ws.warp_lo[warp] = lo_b;
+    ws.warp_hi[warp] = hi_b;
+  }
+  unsigned long long block_total;
+  unsigned long long off = block_excl(ws, mine, &block_total);
+  for (int w = 0; w < nt / 32; ++w) {
+    lo_b = min(lo_b, ws.warp_lo[w]);
+    hi_b = max(hi_b, ws.warp_hi[w]);
+  }
+  int parity = rounds & 1;
+  share_part(ws, parity, block_total, lo_b, hi_b);
+  ++rounds;
+  // every warp reads the parts: the cluster's total, keys, and the units of
+  // the blocks before this one
+  const unsigned long long t = lane < nblk ? ws.part[parity][lane] : 0;
+  const unsigned long long t_incl = warp_incl(t);
+  const unsigned long long total = __shfl_sync(0xffffffffu, t_incl, 31);
+  const unsigned long long base =
+      rank == 0 ? 0 : __shfl_sync(0xffffffffu, t_incl, rank - 1);
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, lane < nblk ? ws.part_lo[parity][lane] : 0xffffffffu);
+  const unsigned hi = __reduce_max_sync(
+      0xffffffffu, lane < nblk ? ws.part_hi[parity][lane] : 0u);
+  int mode, start = 0;
+  unsigned prefix = 0;
+  unsigned long long nd = count;
+  unsigned long long placed = count;
+  if (total <= count) {  // every node takes all its units
+    mode = kSelCut;
+    placed = total;
+  } else if (lo == hi) {  // one key: the count shared in index order
+    mode = kSelTie;
+    prefix = lo;
+    off += base;
+  } else {  // the digits above the first that differs are shared
+    mode = kSelRun;
+    start = __clz(lo ^ hi) / 8;
+    prefix = start == 0 ? 0 : hi >> (32 - 8 * start);
+  }
+
+  for (int p = start; p < 4 && mode == kSelRun; ++p) {
+    const int shift = 24 - 8 * p;
+    for (int j = 0; j < per; ++j) {
+      const int l = tid * per + j;
+      unsigned d = kBins, w = 0;
+      if (l < n_loc && un[l] > 0) {
+        const unsigned b = score_bits(sc[l]);
+        if (p == 0 || (b >> (shift + 8)) == prefix) {
+          d = (b >> shift) & (kBins - 1);
+          w = (unsigned)un[l];
+        }
+      }
+      warp_bin_add(ws.local, d, w);
+    }
+    __syncthreads();
+    for (int b = tid; b < kBins; b += nt) {
+      const unsigned long long v = ws.local[b];
+      if (v != 0) {
+        atomicAdd(&lead->hist[b], v);
+        ws.local[b] = 0;
+      }
+    }
+    cluster.sync();  // every block's bins are in the leader's
+    if (rank == 0 && warp == 0) {
+      // lane L holds bins 255 - 8L down to 248 - 8L, and zeroes them
+      unsigned long long v[8], lane_sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = ws.hist[kBins - 1 - 8 * lane - j];
+        ws.hist[kBins - 1 - 8 * lane - j] = 0;
+        lane_sum += v[j];
+      }
+      const unsigned long long incl = warp_incl(lane_sum);
+      const int f = __ffs(__ballot_sync(0xffffffffu, incl >= nd)) - 1;
+      unsigned long long above = incl - lane_sum, vj = 0;
+      int j = 0;
+      if (lane == f) {
+        while (above + v[j] < nd) above += v[j++];
+        vj = v[j];
+      }
+      above = __shfl_sync(0xffffffffu, above, f);
+      vj = __shfl_sync(0xffffffffu, vj, f);
+      j = __shfl_sync(0xffffffffu, j, f);
+      const unsigned fixed = (prefix << 8) | (kBins - 1 - 8 * f - j);
+      const unsigned long long left = nd - above;
+      // the bin holds exactly the need: every node from its lowest score
+      // bits up takes all
+      const int m = left == vj ? kSelCut : kSelRun;
+      if (lane < nblk) {
+        WaterShared* dst = cluster.map_shared_rank(&ws, lane);
+        dst->need = left;
+        dst->prefix = m == kSelCut ? fixed << shift : fixed;
+        dst->mode = m;
+      }
+    }
+    cluster.sync();  // the outcome is in every block
+    ++rounds;
+    mode = ws.mode;
+    prefix = ws.prefix;
+    nd = ws.need;
+  }
+  if (mode == kSelRun) {
+    // the nodes tied at the boundary key share nd in index order
+    mode = kSelTie;
+    unsigned long long tied = 0;
+    for (int l = l0; l < l1; ++l)
+      if (un[l] > 0 && score_bits(sc[l]) == prefix) tied += (unsigned)un[l];
+    unsigned long long tied_total;
+    off = block_excl(ws, tied, &tied_total);
+    parity = rounds & 1;
+    share_part(ws, parity, tied_total, 0, 0);
+    ++rounds;
+    const unsigned long long x = warp_incl(
+        lane < nblk ? ws.part[parity][lane] : 0);
+    off += rank == 0 ? 0 : __shfl_sync(0xffffffffu, x, rank - 1);
+  }
+  for (int l = l0; l < l1; ++l) {
+    const int u = un[l];
+    int take = 0;
+    if (u > 0) {
+      const unsigned b = score_bits(sc[l]);
+      if (mode == kSelCut) {
+        take = b >= prefix ? u : 0;
+      } else if (b > prefix) {
+        take = u;
+      } else if (b == prefix) {
+        take = off >= nd ? 0 : (int)min((unsigned long long)u, nd - off);
+        off += (unsigned)u;
+      }
+    }
+    apply(l, take);
+  }
+  return (long long)placed;
 }
 
 }  // namespace nomad

@@ -22,32 +22,45 @@
 // gathered buffer in which every shard has written its part, so between
 // shards of one card the gather costs nothing.
 //
-// Four kernels, launched per card in order on the card's stream:
+// Five kernels, launched per card in order on the card's stream:
 //   shard_score         one thread-block cluster per shard, up to 16
 //                       blocks wide (D x size <= the card's SMs: 8 shards
 //                       x 16 = 128 of 132), each block a contiguous part
 //                       of the shard's rows: units and score
-//                       (solve_common.cuh); full mode writes them into
-//                       the gathered [Np] vectors, top-k mode runs the
-//                       cluster-wide selection (solve_common.cuh
-//                       cluster_select) into the shard's [k] slot of the
-//                       [D*k] candidate buffer;
-//   candidate_fill      one block: one warp merges the D sorted candidate
-//                       lists in (score desc, global index asc) order,
-//                       which is argsort by index then stable argsort by
-//                       -score, places min(units, left) on each until the
-//                       group is placed and applies the card's own takes;
-//                       in compact mode the block writes inst[g, :maxC]
-//                       in node order;
-//   gathered_waterfill  one block: K4's pick loop over the gathered [Np]
-//                       vectors (picking the best unit-bearing node until
-//                       `count` is placed is the stable-argsort
-//                       waterfill), applying the card's own takes; for
-//                       the preemption solve it also leaves phase 1's
-//                       remainder on the card and applies phase 2's
-//                       victim accounting (`freed`, `used_new`);
+//                       (solve_common.cuh); full and preemption modes
+//                       write them into the gathered [Np] vectors, top-k
+//                       mode runs the cluster-wide selection
+//                       (solve_common.cuh cluster_select) into the
+//                       shard's [k] slot of the [D*k] candidate buffer;
+//   candidate_fill      one block: the D sorted candidate lists merged in
+//                       (score desc, global index asc) order, which is
+//                       argsort by index then stable argsort by -score,
+//                       min(units, left) placed on each until the group
+//                       is placed, the card's own takes applied; in
+//                       compact mode the picks are kept for the rows;
+//   gathered_waterfill  full mode, one block: K4's pick loop over the
+//                       gathered [Np] vectors (picking the best
+//                       unit-bearing node until `count` is placed is the
+//                       stable-argsort waterfill), applying the card's
+//                       own takes;
+//   gathered_select     the preemption solve's two phases, one thread-
+//                       block cluster of up to 16 blocks over the gathered
+//                       [Np] vectors, each block a contiguous slice of
+//                       them in shared memory: the unit-weighted radix
+//                       select (solve_common.cuh cluster_waterfill), at
+//                       most 10 cluster barriers a phase however many
+//                       nodes receive instances (one when its units all
+//                       fit or its scores all tie), then each block
+//                       applies the card's own rows of its slice;
+//                       phase 1 leaves its remainder on the card for phase
+//                       2, which applies the victim accounting (`freed`,
+//                       `used_new`);
 //   shard_finish        after the scan: over [rows] (compact mode) or the
 //                       preemption solve's used' = used - freed + used_new.
+// On one card the preemption solve's whole chain (4 launches a group and
+// the finish) is captured once per shape into a CUDA graph and replayed
+// (scheduler/gpu/kernels.py): every entry point launches on the stream it
+// is given and allocates nothing.
 //
 // What bounds it on the card: not bytes (c2m_sharded moves ~10 MB per
 // batch) but the step-by-step dependency between groups (two launches
@@ -400,32 +413,23 @@ __global__ void shard_inst_kernel(const int* picks, int gp, int dk,
                  inst + (size_t)g * max_count, max_count, stage);
 }
 
-enum WaterMode { kWaterFull = 0, kWaterPhase1 = 1, kWaterPhase2 = 2 };
+enum GatherMode { kWaterFull = 0, kWaterPhase1 = 1, kWaterPhase2 = 2 };
 
 struct WaterArgs {
-  int mode;
   int g;
   const int* asks;        // [gp, 3]
   const int* counts;      // [gp]
-  int* rem;               // [1] (K7): written by phase 1, read by phase 2
   const float* g_score;   // [np] gathered
   int* g_units;           // [np] gathered (picked nodes are zeroed)
   int np;
   int base;               // global index of card row 0
   int rows;
-  const int* cap;         // [rows, 3]
-  const int* used_in;     // [rows, 3] (K7's used_exist)
-  int* used;              // [rows, 3] (K6's working used')
-  int* used_new;          // [rows, 3] (K7)
-  int* freed;             // [rows, 3] (K7)
-  int* take1;             // [rows] (K7)
-  const int* prefix;      // [tp, rows, 3] (K7)
-  int tp;
-  const int* tier_limit;  // [gp] (K7)
+  int* used;              // [rows, 3] the card's working used'
   int* assign;            // [gp, rows]
-  int* evict;             // [gp, rows] (K7)
 };
 
+// Full mode: the best node that still has units takes min(units, left)
+// until the group is placed.
 __global__ void __launch_bounds__(kThreads, 1)
 gathered_waterfill_kernel(WaterArgs a) {
   __shared__ float sh_s[kWarps];
@@ -436,15 +440,9 @@ gathered_waterfill_kernel(WaterArgs a) {
 
   const int tid = threadIdx.x;
   const int g = a.g;
-  const int count = a.mode == kWaterPhase2 ? *a.rem : a.counts[g];
+  const int count = a.counts[g];
   const int ask[3] = {a.asks[g * 3 + 0], a.asks[g * 3 + 1], a.asks[g * 3 + 2]};
   const size_t row = (size_t)g * a.rows;
-  const int* prow = nullptr;
-  if (a.mode == kWaterPhase2) {
-    int klim = a.tier_limit[g];
-    klim = min(max(klim < 0 ? klim + a.tp : klim, 0), a.tp - 1);
-    prow = a.prefix + (size_t)klim * a.rows * 3;
-  }
   float my_s = -INFINITY;
   int my_i = kNoNode;
   if (count > 0) {
@@ -468,37 +466,10 @@ gathered_waterfill_kernel(WaterArgs a) {
       a.g_units[bi] = 0;
       const int l = bi - a.base;
       if (l >= 0 && l < a.rows) {
-        if (a.mode == kWaterFull) {
 #pragma unroll
-          for (int r = 0; r < 3; ++r)
-            a.used[l * 3 + r] =
-                wrap_add(a.used[l * 3 + r], wrap_mul(tk, ask[r]));
-          a.assign[row + l] = tk;
-        } else if (a.mode == kWaterPhase1) {
-#pragma unroll
-          for (int r = 0; r < 3; ++r)
-            a.used_new[l * 3 + r] =
-                wrap_add(a.used_new[l * 3 + r], wrap_mul(tk, ask[r]));
-          a.take1[l] = tk;
-          a.assign[row + l] = tk;
-        } else {
-          // what phase 2 ate into victims rather than leftover free
-          // capacity, against the usage standing after phase 1
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const int t = l * 3 + r;
-            const int ut =
-                wrap_add(wrap_sub(a.used_in[t], a.freed[t]), a.used_new[t]);
-            const int p = max(wrap_sub(prow[t], a.freed[t]), 0);
-            const int normal_free = max(wrap_sub(a.cap[t], ut), 0);
-            const int placed = wrap_mul(tk, ask[r]);
-            const int overflow = max(wrap_sub(placed, normal_free), 0);
-            a.freed[t] = wrap_add(a.freed[t], min(overflow, p));
-            a.used_new[t] = wrap_add(a.used_new[t], placed);
-          }
-          a.evict[row + l] = tk;
-          a.assign[row + l] = wrap_add(a.assign[row + l], tk);
-        }
+        for (int r = 0; r < 3; ++r)
+          a.used[l * 3 + r] = wrap_add(a.used[l * 3 + r], wrap_mul(tk, ask[r]));
+        a.assign[row + l] = tk;
       }
       my_s = -INFINITY;
       my_i = kNoNode;
@@ -512,9 +483,109 @@ gathered_waterfill_kernel(WaterArgs a) {
     __syncthreads();
     rem = remaining;
   }
+}
+
+struct SelectArgs {
+  int mode;               // kWaterPhase1 or kWaterPhase2
+  int g;
+  const int* asks;        // [gp, 3]
+  const int* counts;      // [gp]
+  int* rem;               // [1]: written by phase 1, read by phase 2
+  const float* g_score;   // [np] gathered
+  const int* g_units;     // [np] gathered
+  int np;
+  int slice;              // S: gathered entries per block
+  int smem;               // the slice's score and units in shared memory
+  int base;               // global index of card row 0
+  int rows;
+  const int* cap;         // [rows, 3]
+  const int* used_in;     // [rows, 3] (used_exist)
+  int* used_new;          // [rows, 3]
+  int* freed;             // [rows, 3]
+  int* take1;             // [rows]
+  const int* prefix;      // [tp, rows, 3]
+  int tp;
+  const int* tier_limit;  // [gp]
+  int* assign;            // [gp, rows]
+  int* evict;             // [gp, rows]
+};
+
+// One phase of one group of the preemption solve over the gathered
+// vectors; each block applies the takes of the card's own rows in its
+// slice (shard_score zeroed the group's rows in phase 1).
+__global__ void __launch_bounds__(kSelThreads, 1)
+gathered_select_kernel(SelectArgs a) {
+  __shared__ WaterShared ws;
+  extern __shared__ __align__(16) uint8_t dsm[];
+
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int S = a.slice;
+  const int lo = rank * S;
+  const int n_loc = max(0, min(S, a.np - lo));
+  waterfill_init(ws);
+  const int g = a.g;
+  const int count = a.mode == kWaterPhase2 ? *a.rem : a.counts[g];
+  const float* sc = a.g_score + lo;
+  const int* un = a.g_units + lo;
+  if (a.smem) {
+    float* ssc = (float*)dsm;
+    int* sun = (int*)(dsm + (size_t)S * 4);
+    int l0, l1;
+    own_range(n_loc, l0, l1);
+    for (int l = l0; l < l1; ++l) {
+      ssc[l] = sc[l];
+      sun[l] = un[l];
+    }
+    sc = ssc;
+    un = sun;
+  }
+  const int ask[3] = {a.asks[g * 3 + 0], a.asks[g * 3 + 1], a.asks[g * 3 + 2]};
+  const size_t row = (size_t)g * a.rows;
+  const int* prow = nullptr;
+  if (a.mode == kWaterPhase2) {
+    int klim = a.tier_limit[g];
+    klim = min(max(klim < 0 ? klim + a.tp : klim, 0), a.tp - 1);
+    prow = a.prefix + (size_t)klim * a.rows * 3;
+  }
+  int rounds = 0;
+  const long long placed = cluster_waterfill(
+      ws, rounds, sc, un, n_loc, count, [&](int l, int tk) {
+        const int c = lo + l - a.base;  // the card's row, if it owns it
+        if (tk == 0 || c < 0 || c >= a.rows) return;
+        if (a.mode == kWaterPhase1) {
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+            a.used_new[c * 3 + r] =
+                wrap_add(a.used_new[c * 3 + r], wrap_mul(tk, ask[r]));
+          a.take1[c] = tk;
+          a.assign[row + c] = tk;
+          return;
+        }
+        // what phase 2 ate into victims rather than leftover free
+        // capacity, against the usage standing after phase 1
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          const int t = c * 3 + r;
+          const int ut =
+              wrap_add(wrap_sub(a.used_in[t], a.freed[t]), a.used_new[t]);
+          const int p = max(wrap_sub(prow[t], a.freed[t]), 0);
+          const int normal_free = max(wrap_sub(a.cap[t], ut), 0);
+          const int placed_r = wrap_mul(tk, ask[r]);
+          const int overflow = max(wrap_sub(placed_r, normal_free), 0);
+          a.freed[t] = wrap_add(a.freed[t], min(overflow, p));
+          a.used_new[t] = wrap_add(a.used_new[t], placed_r);
+        }
+        a.evict[row + c] = tk;
+        a.assign[row + c] = wrap_add(a.assign[row + c], tk);
+      });
   // phase 1's remainder: count minus the whole mesh's takes (the
   // reference's psum), the same on every card
-  if (a.mode == kWaterPhase1 && tid == 0) *a.rem = rem;
+  if (a.mode == kWaterPhase1 && rank == 0 && threadIdx.x == 0)
+    *a.rem = count - (int)placed;
+  // no block exits while another may still read the leader's bins
+  cluster.sync();
 }
 
 __global__ void shard_finish_kernel(int preempt, const int* cap,
@@ -612,6 +683,61 @@ cudaError_t shard_launch(int n_shards, int w, ShardLaunch* out) {
                               c.dyn);
 }
 
+struct SelectLaunch {
+  int np;     // gathered entries it was chosen for
+  int csize;  // blocks per cluster
+  int slice;  // entries per block
+  int dyn;    // dynamic shared memory: a block's score/units, or 0
+};
+
+// One cluster over the gathered vectors: the widest of 16, 8, ..., 1
+// blocks the card can co-schedule, each block's slice of score and units
+// in shared memory where it fits. Chosen at the first launch for each np.
+cudaError_t select_launch(int np, SelectLaunch* out) {
+  static SelectLaunch chosen = {};
+  // per device, so set before every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      gathered_select_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+      1);
+  if (e != cudaSuccess) return e;
+  if (chosen.csize == 0 || chosen.np != np) {
+    int dev = 0, optin = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, gathered_select_kernel);
+    if (e != cudaSuccess) return e;
+    chosen.csize = 0;
+    for (int csize = kMaxCluster; csize >= 1 && chosen.csize == 0;
+         csize /= 2) {
+      const int slice = (np + csize - 1) / csize;
+      const size_t dyn = fa.sharedSizeBytes + (size_t)slice * 8 <=
+                                 (size_t)optin
+                             ? (size_t)slice * 8
+                             : 0;
+      e = cudaFuncSetAttribute(gathered_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dyn);
+      if (e != cudaSuccess) return e;
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t cfg = shard_config(1, csize, dyn, attr, nullptr);
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(
+          &clusters, (const void*)gathered_select_kernel, &cfg);
+      if (e != cudaSuccess) return e;
+      if (clusters >= 1) chosen = SelectLaunch{np, csize, slice, (int)dyn};
+    }
+    if (chosen.csize == 0) return cudaErrorLaunchOutOfResources;
+  }
+  *out = chosen;
+  return cudaFuncSetAttribute(gathered_select_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              chosen.dyn);
+}
+
 }  // namespace
 
 extern "C" int nomad_shard_score(
@@ -667,11 +793,36 @@ extern "C" int nomad_gathered_waterfill(
     const int* cap, const int* used_in, int* used, int* used_new, int* freed,
     int* take1, const int* prefix, int tp, const int* tier_limit, int* assign,
     int* evict, void* stream) {
-  WaterArgs a{mode,    g,    asks,  counts,   rem,   g_score, g_units,
-              np,      base, rows,  cap,      used_in, used,  used_new,
-              freed,   take1, prefix, tp,     tier_limit, assign, evict};
-  gathered_waterfill_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (mode == kWaterFull) {
+    WaterArgs a{g, asks, counts, g_score, g_units, np, base, rows, used,
+                assign};
+    gathered_waterfill_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (mode != kWaterPhase1 && mode != kWaterPhase2)
+    return (int)cudaErrorInvalidValue;
+  SelectLaunch l;
+  cudaError_t e = select_launch(np, &l);
+  if (e != cudaSuccess) return (int)e;
+  SelectArgs a{mode,    g,       asks,    counts,     rem,      g_score,
+               g_units, np,      l.slice, l.dyn > 0,  base,     rows,
+               cap,     used_in, used_new, freed,     take1,    prefix,
+               tp,      tier_limit, assign, evict};
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = shard_config(1, l.csize, l.dyn, attr, stream);
+  e = cudaLaunchKernelEx(&cfg, gathered_select_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The cluster size of the preemption phases' select over np gathered
+// entries on this card, negative where a block's slice does not fit in
+// shared memory, 0 if none can be placed. Chooses (and caches) the launch
+// shape, so a caller capturing a CUDA graph calls it first.
+extern "C" int nomad_water_cluster(int np) {
+  SelectLaunch l;
+  if (np < 1 || select_launch(np, &l) != cudaSuccess) return 0;
+  return l.dyn > 0 ? l.csize : -l.csize;
 }
 
 extern "C" int nomad_shard_finish(int preempt, const int* cap,

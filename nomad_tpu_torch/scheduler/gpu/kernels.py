@@ -44,6 +44,8 @@ falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import threading
+import time
 
 import torch
 
@@ -214,6 +216,58 @@ def _waterfill(score, units, count, k=None):
     take = torch.zeros_like(units)
     take[order] = take_sorted
     return take
+
+
+def score_key(score):
+    """csrc/solve_common.cuh score_bits on an f32 tensor: the score's bits
+    as an order-preserving unsigned 32-bit key (in int64), larger for a
+    larger score, -0.0 given +0.0's key (better() and a stable sort tie
+    them)."""
+    b = score.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    b = torch.where((b & 0x7FFFFFFF) == 0, torch.zeros_like(b), b)
+    return torch.where((b & 0x80000000) != 0, b ^ 0xFFFFFFFF,
+                       b | 0x80000000)
+
+
+def waterfill_select_plain(score, units, count):
+    """_waterfill computed as csrc/solve_common.cuh cluster_waterfill
+    computes it, a unit-weighted radix select of the boundary node, in
+    plain PyTorch: unit-bearing nodes keyed by score_key, 8-bit digits
+    from the top, the shortcut when every unit fits, the early cut when a
+    fixed digit's bin holds exactly the need, and the nodes tied at the
+    boundary score sharing what is left in node-index order. Sums are in
+    int64, so it equals _waterfill wherever _waterfill's int32 cumsum does
+    not wrap. For the tests: the port computes the waterfill in its
+    kernels and twins."""
+    take = torch.zeros_like(units)
+    need = int(count)
+    live = units > 0
+    if need <= 0 or not bool(live.any()):
+        return take
+    bits = score_key(score)
+    u = torch.where(live, units.long(), torch.zeros_like(bits))
+    if int(u.sum()) <= need:
+        return torch.where(live, units, take)
+    prefix = 0
+    for p in range(4):
+        shift = 24 - 8 * p
+        run = live if p == 0 else live & ((bits >> (shift + 8)) == prefix)
+        digit = (bits >> shift) & 0xFF
+        hist = torch.zeros(256, dtype=torch.int64, device=units.device)
+        hist.index_add_(0, digit[run], u[run])
+        at_or_above = hist.flip(0).cumsum(0).flip(0)
+        d = int((at_or_above >= need).nonzero().max())
+        need -= int(at_or_above[d] - hist[d])
+        prefix = (prefix << 8) | d
+        if need == int(hist[d]):
+            return torch.where(live & (bits >= (prefix << shift)), units,
+                               take)
+    tied = live & (bits == prefix)
+    tu = torch.where(tied, u, torch.zeros_like(u))
+    share = torch.minimum(torch.clamp_min(need - (torch.cumsum(tu, 0) - tu),
+                                          0), u)
+    take = torch.where(live & (bits > prefix), units, take)
+    return torch.where(tied, share.to(units.dtype), take)
 
 
 def _place_scores(cap_f, used, ask, bias_g, units):
@@ -464,7 +518,7 @@ def solve_placement(cap, used, asks, counts, feas, bias, units_cap):
     np_, gp = cap.shape[0], asks.shape[0]
     assign = torch.empty((gp, np_), dtype=torch.int32, device=dev)
     used_out = torch.empty((np_, 3), dtype=torch.int32, device=dev)
-    work = torch.empty((9 * np_,), dtype=torch.int32, device=dev)
+    work = torch.empty((5 * np_,), dtype=torch.int32, device=dev)
     code = libkernels.library().nomad_solve_dense(
         cap.data_ptr(), used.data_ptr(), asks.data_ptr(), counts.data_ptr(),
         feas.data_ptr(), bias.data_ptr(), units_cap.data_ptr(), np_, gp,
@@ -489,7 +543,8 @@ def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,
     group may preempt (0 = none; a negative limit counts from the end,
     then it is clamped to [0, Tp - 1], as the JAX kernel reads it). Returns
     (assign [Gp, Np], assign_evict [Gp, Np] — the phase-2 placements,
-    which displace victims — and used' [Np, 3]), all i32.
+    which displace victims — and used' [Np, 3]), all i32. On CUDA it is
+    one launch of one thread-block cluster (csrc/solve_dense.cu).
     """
     if cap.device.type == "cpu":
         return solve_placement_preempt_plain(
@@ -507,20 +562,28 @@ def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,
     assign = torch.empty((gp, np_), dtype=torch.int32, device=dev)
     evict = torch.empty((gp, np_), dtype=torch.int32, device=dev)
     used_out = torch.empty((np_, 3), dtype=torch.int32, device=dev)
+    # the slices' state where it does not fit in shared memory
     work = torch.empty((9 * np_,), dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 4)()
     code = libkernels.library().nomad_solve_preempt(
         cap.data_ptr(), used_exist.data_ptr(), prefix_used.data_ptr(), tp,
         asks.data_ptr(), counts.data_ptr(), feas.data_ptr(), bias.data_ptr(),
         units_cap.data_ptr(), tier_limit.data_ptr(), np_, gp,
         work.data_ptr(), assign.data_ptr(), evict.data_ptr(),
-        used_out.data_ptr(), _stream_ptr(dev),
+        used_out.data_ptr(), info, _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement_preempt")
     solve_placement_preempt.launches += 1
+    solve_placement_preempt.last_launch = {
+        "cluster": info[0], "smem_slices": bool(info[1]),
+        "slice": info[2], "smem_bytes": info[3],
+    }
     return assign, evict, used_out
 
 
 solve_placement_preempt.launches = 0
+# the cluster size and slice placement the last launch chose
+solve_placement_preempt.last_launch = None
 
 
 # ---------------------------------------------------------------------------
@@ -823,10 +886,14 @@ def _exchange(cards: list, names: tuple, unit: int) -> None:
 
 
 def _launch(counter, name: str, dev, *args) -> None:
+    """Launch one entry point on dev's current stream; count it on
+    `counter` unless that is None (a launch being captured into a graph
+    counts when the graph replays)."""
     with torch.cuda.device(dev):
         code = getattr(libkernels.library(), name)(*args, _stream_ptr(dev))
     libkernels.check(code, name)
-    counter.launches += 1
+    if counter is not None:
+        counter.launches += 1
 
 
 def _card_inputs(c, gp, rows, asks, counts, **parts) -> None:
@@ -955,15 +1022,121 @@ def sharded_solver(cap, used, asks, counts, feas, bias, units_cap, *,
 sharded_solver.launches = 0
 
 
+# K7's node-axis inputs, and the replicated ones each card holds a copy of
+_PREEMPT_INPUTS = ("cap", "used", "prefix_used", "feas", "bias", "units_cap",
+                   "asks", "counts", "tier_limit")
+
+
+def _preempt_buffers(c, gp: int, np_: int) -> None:
+    """One card's working and output tensors of K7."""
+    dev, rows = c["dev"], c["rows"]
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    c.update(used_new=empty((rows, 3)), freed=empty((rows, 3)),
+             take1=empty((rows,)), rem=empty((1,)),
+             g_score=empty((np_,), torch.float32), g_units=empty((np_,)),
+             assign=empty((gp, rows)), evict=empty((gp, rows)),
+             out=empty((rows, 3)))
+
+
+def _preempt_chain(cards: list, np_: int, w: int, gp: int, tp: int,
+                   counter) -> int:
+    """Queue K7's whole step chain on each card's current stream: per
+    group, phase 1's shard scoring and select, then phase 2's, with the
+    gathers between cards, and the finish. Returns the launches made."""
+    n = 0
+    for g in range(gp):
+        for score_mode, water_mode in ((2, 1), (3, 2)):
+            for c in cards:
+                _launch(counter, "nomad_shard_score", c["dev"], score_mode, g,
+                        int(g == 0 and score_mode == 2), _ptr(c["cap"]),
+                        _ptr(c["used"]), None, _ptr(c["used_new"]),
+                        _ptr(c["freed"]), _ptr(c["take1"]),
+                        _ptr(c["prefix_used"]), tp, _ptr(c["tier_limit"]),
+                        _ptr(c["rem"]), _ptr(c["asks"]), _ptr(c["counts"]),
+                        _ptr(c["feas"]), _ptr(c["bias"]),
+                        _ptr(c["units_cap"]), _ptr(c["assign"]),
+                        _ptr(c["evict"]), None, None, _ptr(c["g_score"]),
+                        _ptr(c["g_units"]), None, c["nsc"], w, c["s0"], 0)
+            _exchange(cards, ("g_score", "g_units"), w)
+            for c in cards:
+                _launch(counter, "nomad_gathered_waterfill", c["dev"],
+                        water_mode, g, _ptr(c["asks"]), _ptr(c["counts"]),
+                        _ptr(c["rem"]), _ptr(c["g_score"]),
+                        _ptr(c["g_units"]), np_, c["s0"] * w, c["rows"],
+                        _ptr(c["cap"]), _ptr(c["used"]), None,
+                        _ptr(c["used_new"]), _ptr(c["freed"]),
+                        _ptr(c["take1"]), _ptr(c["prefix_used"]), tp,
+                        _ptr(c["tier_limit"]), _ptr(c["assign"]),
+                        _ptr(c["evict"]))
+            n += 2 * len(cards)
+    for c in cards:
+        _launch(counter, "nomad_shard_finish", c["dev"], 1, _ptr(c["cap"]),
+                _ptr(c["used"]), None, _ptr(c["freed"]), _ptr(c["used_new"]),
+                _ptr(c["out"]), None, c["rows"], None, 0, 0, None, 0)
+    return n + len(cards)
+
+
+# graphs kept per shape, oldest dropped first
+MAX_PREEMPT_GRAPHS = 8
+
+
+def _preempt_graph(c: dict, np_: int, w: int, gp: int, tp: int,
+                   n_shards: int) -> tuple:
+    """K7's cached graph for this shape on c's card: (entry, route). A new
+    shape captures the whole chain into a CUDA graph over static buffers;
+    a capture or instantiation that fails raises."""
+    fn = sharded_solver_preempt
+    dev = c["dev"]
+    key = (np_, gp, tp, n_shards, dev.index)
+    entry = fn.graphs.get(key)
+    if entry is not None:
+        return entry, "graph_replay"
+    t0 = time.perf_counter()
+    static = {name: torch.empty_like(c[name]) for name in _PREEMPT_INPUTS}
+    static.update(dev=dev, s0=0, nsc=n_shards, rows=np_)
+    _preempt_buffers(static, gp, np_)
+    lib = libkernels.library()
+    with torch.cuda.device(dev):
+        # the launch shapes are chosen (and cached) outside the capture
+        if not (lib.nomad_shard_cluster(n_shards, w)
+                and lib.nomad_water_cluster(np_)):
+            raise RuntimeError("sharded_solver_preempt: no cluster shape "
+                               f"fits Np {np_} on {dev}")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            launches = _preempt_chain([static], np_, w, gp, tp, None)
+    entry = {"graph": graph, "c": static, "launches": launches,
+             "done": torch.cuda.Event(),
+             "capture_s": time.perf_counter() - t0}
+    while len(fn.graphs) >= MAX_PREEMPT_GRAPHS:
+        fn.graphs.pop(next(iter(fn.graphs)))
+    fn.graphs[key] = entry
+    return entry, "graph_capture"
+
+
 def sharded_solver_preempt(cap, used_exist, prefix_used, asks, counts, feas,
                            bias, units_cap, tier_limit, *, n_shards: int):
     """The node-sharded preemption solve: solve_placement_preempt's
     contract ((assign [Gp, Np], assign_evict [Gp, Np], used')), with the
     node-axis operands in sharded_solver's form and prefix_used [Tp, Np,
-    3] (per card [Tp, rows, 3]) sharded alongside cap. On CUDA each scan
-    step launches, per card, phase 1's shard scoring and gathered
-    waterfill, then phase 2's, and one pass after the scan writes used'.
-    A CPU tensor runs sharded_solver_preempt_plain."""
+    3] (per card [Tp, rows, 3]) sharded alongside cap. A CPU tensor runs
+    sharded_solver_preempt_plain.
+
+    On CUDA each scan step launches, per card, phase 1's shard scoring and
+    select, then phase 2's, and one pass after the scan writes used'. With
+    every shard on one card that chain (4 launches a group and the finish)
+    is captured once per (Np, Gp, Tp, shards, card) into a CUDA graph, and
+    each solve copies its inputs into the graph's static buffers on the
+    card, replays it and copies the outputs out. Shards on several cards
+    launch the chain step by step, with the gathers between cards.
+    `last_route` says which ran: "graph_capture" (a new shape, captured
+    then replayed), "graph_replay" or "stepwise"; `launches` counts the
+    kernel launches, a graph's nodes at each replay, and `graph_replays`
+    the replays; `graphs` holds the captured graphs by shape, each with
+    its capture's seconds."""
     if not isinstance(cap, (list, tuple)) and cap.device.type == "cpu":
         return sharded_solver_preempt_plain(
             cap, used_exist, prefix_used, asks, counts, feas, bias,
@@ -979,56 +1152,45 @@ def sharded_solver_preempt(cap, used_exist, prefix_used, asks, counts, feas,
         cards, caps, _card_parts(used_exist), _card_parts(prefix_used),
         _card_parts(feas), _card_parts(bias), _card_parts(units_cap),
     ):
-        dev, rows = c["dev"], c["rows"]
-        _card_inputs(c, gp, rows, asks, counts, cap=cp, used=up,
+        _card_inputs(c, gp, c["rows"], asks, counts, cap=cp, used=up,
                      prefix_used=pp, feas=fp, bias=bp, units_cap=ucp)
         if pp.shape[0] != tp:
             raise ValueError("every card needs the same tier rows")
-        c["tier_limit"] = tier_limit.to(dev)
-        _expect(c["tier_limit"], "tier_limit", torch.int32, (gp,), dev)
-
-        def empty(shape, dtype=torch.int32, dev=dev):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        c.update(used_new=empty((rows, 3)), freed=empty((rows, 3)),
-                 take1=empty((rows,)), rem=empty((1,)),
-                 g_score=empty((np_,), torch.float32), g_units=empty((np_,)),
-                 assign=empty((gp, rows)), evict=empty((gp, rows)),
-                 out=empty((rows, 3)))
+        c["tier_limit"] = tier_limit.to(c["dev"])
+        _expect(c["tier_limit"], "tier_limit", torch.int32, (gp,), c["dev"])
     fn = sharded_solver_preempt
-    for g in range(gp):
-        for score_mode, water_mode in ((2, 1), (3, 2)):
-            for c in cards:
-                _launch(fn, "nomad_shard_score", c["dev"], score_mode, g,
-                        int(g == 0 and score_mode == 2), _ptr(c["cap"]),
-                        _ptr(c["used"]), None, _ptr(c["used_new"]),
-                        _ptr(c["freed"]), _ptr(c["take1"]),
-                        _ptr(c["prefix_used"]), tp, _ptr(c["tier_limit"]),
-                        _ptr(c["rem"]), _ptr(c["asks"]), _ptr(c["counts"]),
-                        _ptr(c["feas"]), _ptr(c["bias"]),
-                        _ptr(c["units_cap"]), _ptr(c["assign"]),
-                        _ptr(c["evict"]), None, None, _ptr(c["g_score"]),
-                        _ptr(c["g_units"]), None, c["nsc"], w, c["s0"], 0)
-            _exchange(cards, ("g_score", "g_units"), w)
-            for c in cards:
-                _launch(fn, "nomad_gathered_waterfill", c["dev"], water_mode,
-                        g, _ptr(c["asks"]), _ptr(c["counts"]), _ptr(c["rem"]),
-                        _ptr(c["g_score"]), _ptr(c["g_units"]), np_,
-                        c["s0"] * w, c["rows"], _ptr(c["cap"]),
-                        _ptr(c["used"]), None, _ptr(c["used_new"]),
-                        _ptr(c["freed"]), _ptr(c["take1"]),
-                        _ptr(c["prefix_used"]), tp, _ptr(c["tier_limit"]),
-                        _ptr(c["assign"]), _ptr(c["evict"]))
-    for c in cards:
-        _launch(fn, "nomad_shard_finish", c["dev"], 1, _ptr(c["cap"]),
-                _ptr(c["used"]), None, _ptr(c["freed"]), _ptr(c["used_new"]),
-                _ptr(c["out"]), None, c["rows"], None, 0, 0, None, 0)
-    return (_joined([c["assign"] for c in cards], cap),
-            _joined([c["evict"] for c in cards], cap),
-            _joined([c["out"] for c in cards], cap))
+    if len(cards) > 1:
+        for c in cards:
+            _preempt_buffers(c, gp, np_)
+        _preempt_chain(cards, np_, w, gp, tp, fn)
+        fn.last_route = "stepwise"
+        return (_joined([c["assign"] for c in cards], cap),
+                _joined([c["evict"] for c in cards], cap),
+                _joined([c["out"] for c in cards], cap))
+    c = cards[0]
+    with fn.lock:
+        entry, route = _preempt_graph(c, np_, w, gp, tp, n_shards)
+        static = entry["c"]
+        with torch.cuda.device(c["dev"]):
+            stream = torch.cuda.current_stream(c["dev"])
+            # the last solve on another stream has copied its outputs out
+            stream.wait_event(entry["done"])
+            for name in _PREEMPT_INPUTS:
+                static[name].copy_(c[name], non_blocking=True)
+            entry["graph"].replay()
+            out = tuple(static[k].clone() for k in ("assign", "evict", "out"))
+            entry["done"].record(stream)
+        fn.launches += entry["launches"]
+        fn.graph_replays += 1
+        fn.last_route = route
+    return out
 
 
 sharded_solver_preempt.launches = 0
+sharded_solver_preempt.graph_replays = 0
+sharded_solver_preempt.last_route = None
+sharded_solver_preempt.graphs = {}
+sharded_solver_preempt.lock = threading.Lock()
 
 
 KERNELS = (solve_placement_compact, solve_placement, solve_placement_preempt,
@@ -1039,3 +1201,4 @@ KERNELS = (solve_placement_compact, solve_placement, solve_placement_preempt,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    sharded_solver_preempt.graph_replays = 0

@@ -148,7 +148,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p,      # feas, bias, ucap, tier_limit
         i, i,            # np, gp
         p, p, p, p,      # workspace, assign, evict, used_out
-        p,               # stream
+        p, p,            # launch info (host), stream
     ]
     lib.nomad_solve_preempt.restype = i
     lib.nomad_shard_score.argtypes = [
@@ -186,6 +186,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,               # stream
     ]
     lib.nomad_gathered_waterfill.restype = i
+    lib.nomad_water_cluster.argtypes = [i]  # gathered entries
+    lib.nomad_water_cluster.restype = i
     lib.nomad_shard_finish.argtypes = [
         i, p, p, p,      # preempt, cap, used_in, used
         p, p, p, p,      # freed, used_new, used_out, over

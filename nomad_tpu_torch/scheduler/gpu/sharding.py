@@ -162,13 +162,16 @@ class SolverMesh:
 
                 def sharded_solve(cap, used_exist, prefix_used, asks, counts,
                                   feas, bias, units_cap, tier_limit):
-                    return sharded_solver_preempt(
+                    out = sharded_solver_preempt(
                         self.place(cap), self.place(used_exist),
                         self.place(prefix_used, 1), self.replicate(asks),
                         self.replicate(counts), self.place(feas, 1),
                         self.place(bias, 1), self.place(units_cap, 1),
                         self.replicate(tier_limit), n_shards=self.n_dev,
                     )
+                    # the launch ledger reads the route (solverobs)
+                    sharded_solve.last_route = sharded_solver_preempt.last_route
+                    return out
 
                 sharded_solve.__name__ = f"sharded_solver_preempt_d{self.n_dev}"
                 self._preempt = sharded_solve

@@ -62,7 +62,7 @@ def set_enabled(on: bool) -> None:
 class _Kernel:
     __slots__ = (
         "sigs", "launches", "new_shapes", "enqueue_ns", "last_sig",
-        "evicted",
+        "evicted", "routes",
     )
 
     def __init__(self) -> None:
@@ -73,6 +73,9 @@ class _Kernel:
         self.enqueue_ns = 0
         self.last_sig: Optional[tuple] = None
         self.evicted = 0
+        # route -> calls, for entry points that report one (a CUDA graph's
+        # capture or replay, or step-by-step launches)
+        self.routes: dict = {}
 
     def to_wire(self) -> dict:
         return {
@@ -84,6 +87,7 @@ class _Kernel:
             "last_signature": (
                 list(self.last_sig) if self.last_sig is not None else None
             ),
+            "routes": dict(self.routes),
         }
 
 
@@ -120,9 +124,10 @@ class SolverObservatory:
     # -- launch-shape ledger -------------------------------------------
 
     def record_launch(self, kernel: str, signature: tuple,
-                      wall_ns: int) -> bool:
+                      wall_ns: int, route: Optional[str] = None) -> bool:
         """One kernel entry-point call, `wall_ns` of host time to
-        enqueue: True when its padded-shape signature is new."""
+        enqueue, and the route it took where it reports one: True when
+        its padded-shape signature is new."""
         if not _enabled:
             return False
         with self._lock:
@@ -134,6 +139,8 @@ class SolverObservatory:
             k.last_sig = signature
             k.launches += 1
             k.enqueue_ns += wall_ns
+            if route is not None:
+                k.routes[route] = k.routes.get(route, 0) + 1
             new = signature not in k.sigs
             if new:
                 while len(k.sigs) >= MAX_SIGNATURES:
@@ -371,5 +378,6 @@ def timed_call(kernel: str, signature: tuple, fn, *args, **kwargs):
     awaited here) and records whether its shape is new."""
     t0 = time.monotonic_ns()
     out = fn(*args, **kwargs)
-    record_launch(kernel, signature, time.monotonic_ns() - t0)
+    record_launch(kernel, signature, time.monotonic_ns() - t0,
+                  getattr(fn, "last_route", None))
     return out

@@ -12,9 +12,14 @@ only on the card and are held against these same twins by
 chip_smoke.py.
 """
 
+import zlib
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from nomad_tpu.scheduler.tpu import kernels as jk
 from nomad_tpu.scheduler.tpu import solver as jsolver
@@ -366,3 +371,122 @@ def test_launch_counters_reset():
     tk.sharded_solver.launches = 2
     tk.reset_launch_counts()
     assert [fn.launches for fn in tk.KERNELS] == [0] * 7
+
+
+# ---------------------------------------------------------------------------
+# the waterfill as a unit-weighted radix select (K5's and K7's kernels)
+# ---------------------------------------------------------------------------
+
+
+def _score_key_mirror(x: float) -> int:
+    """csrc/solve_common.cuh score_bits written out for one f32."""
+    b = int(np.float32(x).view(np.uint32))
+    if b & 0x7FFFFFFF == 0:
+        b = 0  # -0.0
+    return (~b & 0xFFFFFFFF) if b & 0x80000000 else (b | 0x80000000)
+
+
+def test_score_key_ties_signed_zeros_and_orders_scores():
+    """The select's key gives -0.0 the key of +0.0 (better() and the
+    stable sort tie them), and orders every other f32 as its value."""
+    rng = np.random.default_rng(3)
+    vals = np.concatenate([
+        np.array([0.0, -0.0, 1e-45, -1e-45, 1.17549435e-38, -np.inf, np.inf,
+                  jk.NEG_INF, 1.0, np.nextafter(np.float32(1.0), 2)],
+                 dtype=np.float32),
+        rng.standard_normal(500).astype(np.float32),
+        (rng.random(500) * 1.2).astype(np.float32),
+    ])
+    keys = tk.score_key(torch.from_numpy(vals)).numpy()
+    assert [int(k) for k in keys] == [_score_key_mirror(v) for v in vals]
+    assert keys[0] == keys[1] == 0x80000000
+    order = np.argsort(vals, kind="stable")
+    for a, b in zip(order[:-1], order[1:]):
+        assert (keys[a] < keys[b]) == (vals[a] < vals[b])
+        assert (keys[a] == keys[b]) == (vals[a] == vals[b])
+
+
+def _three_waterfills(score, units, count):
+    """nomad_tpu's _waterfill (JAX on the CPU), the port's _waterfill and
+    waterfill_select_plain on the same inputs."""
+    ref = np.asarray(jk._waterfill(jnp.asarray(score), jnp.asarray(units),
+                                   jnp.int32(count)))
+    ts, tu = torch.from_numpy(score), torch.from_numpy(units)
+    port = tk._waterfill(ts, tu, torch.tensor(count, dtype=torch.int32))
+    sel = tk.waterfill_select_plain(ts, tu, count)
+    return ref, port.numpy(), sel.numpy()
+
+
+def _waterfill_case(name):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n = 257
+    score = rng.choice(np.float32([0.2, 0.5, 0.7, 0.9]), n)
+    units = rng.integers(1, 6, n).astype(np.int32)
+    count = int(units.sum()) // 2
+    if name == "all_tied":
+        score[:] = np.float32(0.7)
+    elif name == "boundary_inside_tied_run":
+        score = np.float32([0.9] * 40 + [0.5] * 177 + [0.1] * 40)
+        units = np.full(n, 2, dtype=np.int32)
+        count = 80 + 101  # 40 top nodes, then 50.5 of the tied run
+    elif name == "one_unit_nodes":
+        units[:] = 1
+    elif name == "count_past_total":
+        count = int(units.sum()) + 10
+    elif name == "count_equals_total":
+        count = int(units.sum())
+    elif name == "count_zero":
+        count = 0
+    elif name == "neg_inf_without_units":
+        units[rng.random(n) < 0.4] = 0
+        score[units == 0] = np.float32(jk.NEG_INF)
+    elif name == "signed_zero_ties":
+        score = rng.choice(np.float32([0.0, -0.0, 0.3]), n)
+    elif name == "bin_holds_the_need":
+        # the top score's units are exactly the count: the select stops at
+        # its bin
+        count = int(units[score == score.max()].sum())
+    elif name == "spread_scores":
+        n = 10240
+        score = (rng.random(n) * 1.2).astype(np.float32)
+        units = rng.integers(0, 11, n).astype(np.int32)
+        score[units == 0] = np.float32(jk.NEG_INF)
+        count = int(units.sum()) // 3
+    return score, units, count
+
+
+@pytest.mark.parametrize("name", [
+    "all_tied", "boundary_inside_tied_run", "one_unit_nodes",
+    "count_past_total", "count_equals_total", "count_zero",
+    "neg_inf_without_units", "signed_zero_ties", "bin_holds_the_need",
+    "spread_scores",
+])
+def test_waterfill_select_matches_reference(name):
+    ref, port, sel = _three_waterfills(*_waterfill_case(name))
+    np.testing.assert_array_equal(port, ref)
+    np.testing.assert_array_equal(sel, ref)
+
+
+@st.composite
+def _waterfill_inputs(draw):
+    n = draw(st.integers(1, 80))
+    pool = draw(st.lists(st.floats(-2.0, 2.0, width=32), min_size=1,
+                         max_size=4)) + [0.0, -0.0]
+    score = np.array(draw(st.lists(st.sampled_from(pool), min_size=n,
+                                   max_size=n)), dtype=np.float32)
+    units = np.array(draw(st.lists(st.integers(0, 9), min_size=n,
+                                   max_size=n)), dtype=np.int32)
+    if draw(st.booleans()):
+        score[units == 0] = np.float32(jk.NEG_INF)
+    count = draw(st.integers(0, int(units.sum()) + 3))
+    return score, units, count
+
+
+@settings(max_examples=150, deadline=None)
+@given(_waterfill_inputs())
+def test_waterfill_select_matches_reference_property(inputs):
+    """Scores drawn from a few values and both zeros (long tied runs),
+    units from 0 to 9, any count up to past the total."""
+    ref, port, sel = _three_waterfills(*inputs)
+    np.testing.assert_array_equal(port, ref)
+    np.testing.assert_array_equal(sel, ref)

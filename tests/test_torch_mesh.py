@@ -279,6 +279,52 @@ def test_sharded_preempt_twin_random_limits():
     _assert_same(ref, got, ("assign", "evict", "used'"))
 
 
+@pytest.mark.parametrize("variant", ["random", "tied"])
+def test_sharded_preempt_with_radix_select_matches_reference(monkeypatch,
+                                                           variant):
+    """K7's twin with each phase's gathered waterfill computed as its
+    kernel computes it (the radix select's plain model) on 8 shards
+    equals nomad_tpu's make_sharded_solver_preempt, on random scores and
+    with every node tied."""
+    a = _preempt_args(_c1k_problem(np.random.default_rng(11), tiers=3,
+                                   tied=variant == "tied"))
+    if variant == "tied":
+        a[1] = np.full_like(a[1], 3400)  # phase 1 scores every node alike
+    ref = jk.make_sharded_solver_preempt(_mesh_n(8), "nodes")(*a)
+
+    def select(score, units, count, k=None):
+        assert k is None
+        return tk.waterfill_select_plain(score, units, int(count))
+
+    monkeypatch.setattr(tk, "_waterfill", select)
+    got = tk.sharded_solver_preempt(*_t(a), n_shards=8)
+    _assert_same(ref, got, ("assign", "evict", "used'"))
+    assert int(np.asarray(ref[0]).sum()) > 0
+
+
+def test_launch_ledger_records_the_route():
+    """solverobs.timed_call records the route an entry point reports in
+    `last_route` (K7's graph capture, replay or step-by-step launches),
+    counted per route in the kernel's ledger row; entry points without
+    one record none."""
+    obs = tobs.SolverObservatory()
+    old = tobs._install(obs)
+    try:
+        def solve():
+            return None
+
+        for route in ("graph_capture", "graph_replay", "graph_replay"):
+            solve.last_route = route
+            tobs.timed_call("sharded_solver_preempt_d8", ("s", 1), solve)
+        tobs.timed_call("solve_placement", ("d", 1), lambda: None)
+        rows = obs.snapshot()["ledger"]["kernels"]
+    finally:
+        tobs._install(old)
+    assert rows["sharded_solver_preempt_d8"]["routes"] == {
+        "graph_capture": 1, "graph_replay": 2}
+    assert rows["solve_placement"]["routes"] == {}
+
+
 # ---------------------------------------------------------------------------
 # the mesh's bookkeeping
 # ---------------------------------------------------------------------------

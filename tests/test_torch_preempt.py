@@ -160,6 +160,29 @@ def test_preempt_padded_tier_axis_and_limit_at_the_pad():
     assert at_pad[1].sum() > 0
 
 
+def _select_waterfill(score, units, count, k=None):
+    assert k is None
+    return tkernels.waterfill_select_plain(score, units, int(count))
+
+
+@pytest.mark.parametrize("variant", ["random", "tied", "one_unit"])
+def test_preempt_with_radix_select_matches_reference(monkeypatch, variant):
+    """The preemption solve with each phase's waterfill computed as K5's
+    kernel computes it (the radix select's plain model) equals nomad_tpu's
+    solve_placement_preempt: random scores, all-tied nodes, and one-unit
+    caps that put the boundary inside a run of one-unit nodes."""
+    arrays = list(_problem(np.random.default_rng(29), n=512, g=24, tiers=3))
+    if variant != "random":
+        arrays[0] = np.full_like(arrays[0], 4000)
+        arrays[1] = np.full_like(arrays[1], 3200)
+        arrays[5] = np.zeros_like(arrays[5])
+    if variant == "one_unit":
+        arrays[6] = np.ones_like(arrays[6])
+    monkeypatch.setattr(tkernels, "_waterfill", _select_waterfill)
+    assign, evict, _ = _preempt(*arrays)
+    assert assign.sum() > 0
+
+
 def test_preempt_phase_one_places_everything():
     """Small counts on roomy nodes: phase 1 places every instance, so
     phase 2 has nothing left and evicts nothing."""
