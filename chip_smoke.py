@@ -24,9 +24,15 @@ Phases (one JSON line each, with its seconds):
                 tier limits, one-unit tied nodes; Np 100352 with K5's
                 slices in global memory), each also through the 8-shard
                 solve, whose cached CUDA graph replays other inputs than
-                it was captured on; the row
-                set-scatter (donated and not) and the clamped row
-                scatter-add, with pad indices and negative deltas;
+                it was captured on; the dense solve's select edges
+                (dense_edge_cases: units that all fit, all-tied scores,
+                radix passes, count-0 groups; Np 10000 and 100352 with
+                K4's slices in global memory); the row set-scatter
+                (donated and not) and the clamped row scatter-add, with
+                pad indices and negative deltas, and the one-launch add's
+                edges (scatter_add_cases: repeated and negative indices,
+                4096 rows, rows only the clamp zeroes, a partial last
+                block);
   3. main     — the batch solve path at c2m scale through the entry
                 points a user calls: 10,000 nodes (4000 MHz / 8192 MB,
                 dc1-dc4) and 100 jobs x 1,000 allocs with the kernel.name
@@ -67,7 +73,8 @@ Phases (one JSON line each, with its seconds):
                 K7's device time split by kernel must show the radix
                 select's kernels and no pick loop, and K7's timed calls
                 must replay its CUDA graph (`launch_route`,
-                `graph_replays`, `capture_s`);
+                `graph_replays`, `capture_s`); K4's and K5's must show
+                their cluster kernel alone, with its launch shape;
   7. small    — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, and bench.py's 500-node preempt config,
                 on the card and on the CPU twins: identical placements
@@ -427,6 +434,116 @@ def preempt_edge_checks(dev, rng) -> None:
           f"K7 routes {routes}: the cases did not share one graph")
 
 
+def dense_edge_cases(rng) -> list:
+    """(name, K4 arguments) where the dense solve's cluster kernel can go
+    wrong, 16 groups each: counts past every unit (the select's round-0
+    shortcut), all scores tied (an index-ordered share), spread scores
+    with counts well below the units (radix passes), a batch padded with
+    count-0 groups, Np 10000 (not a multiple of 128: the global-memory
+    slices) and Np 100352 (c2m_sharded's bucket: global-memory slices)."""
+    k4, _ = dense_problem(rng, g=16)
+    k4[3] = np.full_like(k4[3], 1_000_000)
+    cases = [("all_fit", k4)]
+    k4, _ = dense_problem(rng, g=16, tied=True)
+    k4[6] = np.ones_like(k4[6])
+    cases.append(("all_tied", k4))
+    k4 = mesh_problem(rng, n=10240)
+    k4[3] = rng.integers(100, 501, k4[3].shape).astype(np.int32)
+    cases.append(("radix_passes", k4))
+    k4, _ = dense_problem(rng, g=16)
+    k4[3][1::3] = 0
+    k4[3][8:] = 0
+    cases.append(("padded_groups", k4))
+    cases.append(("np10000", dense_problem(rng, n=10000, g=16)[0]))
+    cases.append(("np100352", mesh_problem(rng)))
+    return cases
+
+
+def dense_edge_checks(dev, rng) -> None:
+    """K4 against its twin on dense_edge_cases, array-equal, with what
+    each case is for checked on the twin's outputs and both slice
+    variants (shared and global memory) run."""
+    variants = set()
+    for name, arrays in dense_edge_cases(rng):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = tk.solve_placement(*t)
+        torch.cuda.synchronize()
+        launch = dict(tk.solve_placement.last_launch)
+        want = tk.solve_placement_plain(*t)
+        check(max_abs_err(got, want) == 0,
+              f"dense {name}: K4 differs from its twin (launch {launch})")
+        variants.add(launch["smem_slices"])
+        placed, counts = want[0].sum(dim=1), t[3]
+        check(int(placed.sum()) > 0, f"dense {name}: placed nothing")
+        if name == "all_fit":
+            check(bool((placed < counts).all()),
+                  "all_fit: a group's units covered its count")
+        if name in ("radix_passes", "all_tied"):
+            check(bool((placed == counts).all()),
+                  f"{name}: a group was not placed in full")
+        if name == "padded_groups":
+            check(int(want[0][counts == 0].abs().sum()) == 0,
+                  "padded_groups: a count-0 group placed")
+        if name.startswith("np"):
+            check(not launch["smem_slices"],
+                  f"dense {name}: the slices went to shared memory")
+    check(variants == {True, False},
+          "K4's shared- and global-memory slice variants were not both run")
+
+
+def scatter_add_cases(rng) -> list:
+    """(name, used, idx, rows) where K3's one-launch kernel can go wrong:
+    repeated indices (shared atomics on one row), negative indices down
+    to -Np and past it, the 1 << 30 pad with nonzero pad rows, 4096 rows
+    (more than a block's threads), untouched negative rows that only the
+    clamp zeroes, and Np 10000, whose last block owns part of a range."""
+    n = 10240
+
+    def base(n_, lo=0):
+        return rng.integers(lo, 9000, (n_, 3)).astype(np.int32)
+
+    def deltas(b):
+        return rng.integers(-6000, 6000, (b, 3)).astype(np.int32)
+
+    cases = [("repeated", base(n),
+              rng.choice(50, size=1024).astype(np.int32), deltas(1024))]
+    idx = rng.integers(-n - 40, 0, 1024).astype(np.int32)
+    idx[:4] = [-n, -1, -n - 1, -n]
+    cases.append(("negative", base(n), idx, deltas(1024)))
+    idx = np.full(1024, 1 << 30, dtype=np.int32)
+    idx[:300] = rng.choice(n, 300, replace=False)
+    cases.append(("pad", base(n), idx, deltas(1024)))
+    cases.append(("b4096", base(n), rng.integers(0, n, 4096).astype(np.int32),
+                  deltas(4096)))
+    idx = np.full(1024, 1 << 30, dtype=np.int32)
+    idx[:100] = rng.choice(n // 2, 100, replace=False)
+    cases.append(("untouched_negative", base(n, lo=-3000), idx, deltas(1024)))
+    n2 = 10000
+    idx = rng.integers(n2 - 300, n2, 1024).astype(np.int32)
+    cases.append(("np10000", base(n2), idx, deltas(1024)))
+    return cases
+
+
+def scatter_add_checks(dev, rng) -> None:
+    """K3 against its twin on scatter_add_cases, array-equal; the input
+    must stay as it was (the output is a fresh tensor)."""
+    for name, used, idx, rows in scatter_add_cases(rng):
+        u, i, r = (torch.from_numpy(a).to(dev) for a in (used, idx, rows))
+        got = tk.scatter_add_rows(u, i, r)
+        want = tk.scatter_add_rows_plain(u, i, r)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"scatter_add_rows {name} differs")
+        check(torch.equal(u.cpu(), torch.from_numpy(used)),
+              f"scatter_add_rows {name} wrote its input")
+        check(bool((got == 0).any()), f"scatter_add_rows {name}: no clamp")
+        if name == "untouched_negative":
+            kept = torch.zeros(used.shape[0], dtype=torch.bool)
+            kept[torch.from_numpy(idx[:100]).long()] = True
+            neg = (torch.from_numpy(used) < 0).any(dim=1) & ~kept
+            check(bool(neg.any()) and int(got.cpu()[neg].min()) == 0,
+                  "untouched_negative: no untouched row was clamped")
+
+
 def kernel_checks(dev, seed: int) -> list:
     """Each kernel against its twin on seeded inputs at the c2m bucket.
     Returns K4's arguments from the random dense case, a call that
@@ -486,6 +603,8 @@ def kernel_checks(dev, seed: int) -> list:
     torch.cuda.synchronize()
     mesh_kernel_checks(dev, rng)
     preempt_edge_checks(dev, rng)
+    dense_edge_checks(dev, rng)
+    scatter_add_checks(dev, rng)
     return placing
 
 
@@ -1172,8 +1291,7 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
     ms, enq = device_ms(lambda: tk.solve_placement_preempt(*args), 10)
     plain_ms = time_ms(lambda: tk.solve_placement_preempt_plain(*args), 3)
     split = device_split_ms(lambda: tk.solve_placement_preempt(*args))
-    check("solve_preempt_kernel" in split
-          and "solve_dense_kernel" not in split,
+    check(list(split) == ["solve_placement_kernel"],
           f"K5 did not run the radix-select kernel alone: {split}")
     out.append(entry("solve_placement_preempt", launches, err, ms, plain_ms,
                      nbytes(*args, *got), ops, None, enqueue_ms=enq,
@@ -1188,6 +1306,7 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
     k4 = []
     for args in (rec["solve_placement"].first[0], k4_placing):
         got = tk.solve_placement(*args)
+        launch = dict(tk.solve_placement.last_launch)
         want = tk.solve_placement_plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -1196,10 +1315,13 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
         live = int((counts > 0).sum())
         ms, enq = device_ms(lambda: tk.solve_placement(*args), 10)
         plain_ms = time_ms(lambda: tk.solve_placement_plain(*args), 3)
+        split = device_split_ms(lambda: tk.solve_placement(*args))
+        check(list(split) == ["solve_placement_kernel"],
+              f"K4 did not run the radix-select kernel alone: {split}")
         k4.append(entry("solve_placement", launches, err, ms, plain_ms,
                         nbytes(*args, *got),
                         live * cap.shape[0] * SCORE_FLOPS, None,
-                        enqueue_ms=enq,
+                        enqueue_ms=enq, launch=launch, kernel_split_ms=split,
                         shape={"np": cap.shape[0], "gp": asks.shape[0],
                                "live_groups": live,
                                "placed": int(got[0].sum())}))
@@ -1207,7 +1329,7 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
     check(placing["shape"]["placed"] > 0, "K4's timed case placed nothing")
     path["placing_case"] = {k: placing[k] for k in (
         "max_abs_err", "ms", "enqueue_ms", "plain_ms", "bound_ms",
-        "bound_by", "shape")}
+        "bound_by", "launch", "shape")}
     out.append(path)
     return out
 

@@ -101,45 +101,6 @@ __device__ __forceinline__ float score_fit(int cap0, int cap1, float used0,
   return __fmaf_rn(clip, 1.0f / 18.0f, bias);
 }
 
-// Block-wide argmax of (s, i); every thread returns the winner.
-static __device__ void block_argmax(float s, int i, float* sh_s,
-                                    int* sh_i, float* out_s, int* out_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float os = __shfl_down_sync(0xffffffffu, s, off);
-    int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(os, oi, s, i)) {
-      s = os;
-      i = oi;
-    }
-  }
-  if (lane == 0) {
-    sh_s[warp] = s;
-    sh_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    s = sh_s[lane];
-    i = sh_i[lane];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      float os = __shfl_down_sync(0xffffffffu, s, off);
-      int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (better(os, oi, s, i)) {
-        s = os;
-        i = oi;
-      }
-    }
-    if (lane == 0) {
-      *out_s = s;
-      *out_i = i;
-    }
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
 // Cluster-wide top-m selection (K1's waterfill, K6's shard candidates)
 // ---------------------------------------------------------------------------
@@ -744,7 +705,7 @@ __device__ int cluster_select(SelectShared& sh, const float* sc, int* un,
 
 
 // ---------------------------------------------------------------------------
-// The waterfill as a unit-weighted radix select (K5, K7's preemption phases)
+// The waterfill as a unit-weighted radix select (K4, K5 and K7's phases)
 // ---------------------------------------------------------------------------
 //
 // The full waterfill (kernels.py _waterfill) sorts the nodes by (score

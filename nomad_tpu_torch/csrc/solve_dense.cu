@@ -17,35 +17,32 @@
 // sequential dependency between groups and, inside a group, the
 // waterfill.
 //
-// K4 is ONE launch of ONE block of 1024 threads. Each thread owns the
-// nodes n = tid (mod 1024) for the whole scan and caches its best (score
-// desc, index asc) over its nodes that still have units; a pick is one
-// shuffle reduction over the 1024 cached bests, and only the picked
-// node's owner rescans its nodes. Picking the best unit-bearing node
-// until `count` is placed is the full sort's waterfill, so a group costs
-// as many picks as nodes it fills.
-//
-// K5 is ONE launch of ONE thread-block cluster of up to 16 blocks of 512
-// threads. Block b owns the contiguous node slice [b*S, b*S+S) (S a
-// multiple of 128) from the first group to the last and keeps the
-// slice's per-node state in its shared memory: used_new and freed ([S,
-// 3] each), phase 1's takes, and the phase's score and units (36 B a
-// node, 23 KB a block at Np 10240); cap and used_exist stay in L2, and
-// cp.async brings group g+1's feas/bias/ucap rows and its tier-prefix
-// row while group g runs. Each phase's waterfill is the unit-weighted
-// radix select (solve_common.cuh cluster_waterfill): one round of the
-// cluster's unit total and key range (one cluster barrier) settles a
-// phase whose units all fit or whose scores all tie; otherwise 8-bit radix
-// passes from the first digit where the keys differ (two barriers each)
-// and one index-ordered round for the run tied at the boundary. Each
-// block then applies its own nodes' takes. The pick loop it replaces made
-// one dependent block-wide pick (~2,500 cycles) per node that received
-// instances: 1,750 on the preempt wave, where the select needs 120
-// rounds. The bound is that chain of rounds and the scoring between
-// them, group after group, which no count of bytes or operations sees.
-// Where the slice's state and rows do not fit in shared memory (or Np is
-// not a multiple of 128) the same kernel keeps them in global memory and
-// reads the rows in place.
+// K4 is K5's phase 1 and nothing else, so both are one kernel template,
+// solve_placement_kernel<kSmem, kPreempt>; K4 is its instance without
+// phase 2, `freed`, the phase-1 takes, the tier row and the evictions.
+// Each solve is ONE launch of ONE thread-block cluster of up to 16 blocks
+// of 512 threads. Block b owns the contiguous node slice [b*S, b*S+S) (S
+// a multiple of 128) from the first group to the last and keeps the
+// slice's per-node state in its shared memory: used_new ([S, 3]), the
+// phase's score and units, and for K5 freed ([S, 3]) and phase 1's takes
+// (20 B a node for K4, 36 B for K5: 12 KB and 23 KB a block at Np 10240);
+// cap and the input usage stay in L2, and cp.async brings group g+1's
+// feas/bias/ucap rows (and K5's tier-prefix row) while group g runs. Each
+// phase's waterfill is the unit-weighted radix select (solve_common.cuh
+// cluster_waterfill): one round of the cluster's unit total and key range
+// (one cluster barrier) settles a phase whose units all fit or whose
+// scores all tie; otherwise 8-bit radix passes from the first digit where
+// the keys differ (two barriers each) and one index-ordered round for the
+// run tied at the boundary. Each block then applies its own nodes' takes
+// and writes their entries of the group's rows; a padded group (count 0)
+// only writes its zero rows. The pick loop this replaced made one
+// dependent block-wide pick (~2,500 cycles) per node that received
+// instances, on one SM. The bound is the chain of rounds and the scoring
+// between them, group after group, which no count of bytes or
+// operations sees. Where the slice's state and rows do not fit
+// in shared memory (or Np is not a multiple of 128, or a row is not
+// 16-byte aligned) the same kernel keeps them in global memory and reads
+// the rows in place.
 //
 // Numerics: solve_common.cuh (floor-div units, int32 wrap, the f32 score
 // term for term; build with --fmad=false). The tier index is read as
@@ -60,153 +57,41 @@ namespace {
 
 using namespace nomad;
 
-struct Args {
+struct SolveArgs {
   const int* cap;         // [np, 3]
-  const int* used_in;     // [np, 3]
-  const int* asks;        // [gp, 3]
-  const int* counts;      // [gp]
-  const uint8_t* feas;    // [gp, np] bool
-  const float* bias;      // [gp, np]
-  const int* ucap;        // [gp, np]
-  int np;
-  int gp;
-  float* score;           // scratch [np]
-  int* units;             // scratch [np]
-  int* used_new;          // scratch [np, 3]: this solve's placements
-  int* assign;            // out [gp, np]
-  int* used_out;          // out [np, 3]
-};
-
-struct Shared {
-  float sh_s[kWarps];
-  int sh_i[kWarps];
-  float best_s;
-  int best_i;
-  int remaining;
-};
-
-// The waterfill over units/score already written for this thread's nodes:
-// the best node that still has units takes min(units, left) until `count`
-// is placed or no node has units. Writes take[n] for each picked node
-// (the caller zeroed the row) and adds take * ask to used_new.
-__device__ void waterfill(const Args& a, Shared& sh, float my_s, int my_i,
-                          int count, int* take, const int ask[3]) {
-  const int tid = threadIdx.x;
-  if (tid == 0) sh.remaining = count;
-  __syncthreads();
-  int rem = count;
-  while (rem > 0) {
-    block_argmax(my_s, my_i, sh.sh_s, sh.sh_i, &sh.best_s, &sh.best_i);
-    const int bi = sh.best_i;
-    if (bi == kNoNode) break;
-    if ((bi % kThreads) == tid) {
-      const int tk = min(a.units[bi], sh.remaining);
-      take[bi] = tk;
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        a.used_new[bi * 3 + r] =
-            wrap_add(a.used_new[bi * 3 + r], wrap_mul(tk, ask[r]));
-      a.units[bi] = 0;
-      sh.remaining -= tk;
-      my_s = -INFINITY;
-      my_i = kNoNode;
-      for (int n = tid; n < a.np; n += kThreads) {
-        if (a.units[n] > 0 && better(a.score[n], n, my_s, my_i)) {
-          my_s = a.score[n];
-          my_i = n;
-        }
-      }
-    }
-    __syncthreads();
-    rem = sh.remaining;
-  }
-  // every thread has read `remaining` before the next group resets it
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads, 1) solve_dense_kernel(Args a) {
-  __shared__ Shared sh;
-  const int tid = threadIdx.x;
-  const int np = a.np;
-
-  for (int t = tid; t < np * 3; t += kThreads) a.used_new[t] = 0;
-  __syncthreads();
-
-  for (int g = 0; g < a.gp; ++g) {
-    const int count = a.counts[g];
-    const int ask[3] = {a.asks[g * 3 + 0], a.asks[g * 3 + 1],
-                        a.asks[g * 3 + 2]};
-    const size_t row = (size_t)g * np;
-    const uint8_t* frow = a.feas + row;
-    const float* brow = a.bias + row;
-    const int* urow = a.ucap + row;
-    int* arow = a.assign + row;
-    // _units_for and _score_nodes against the usage at the start of the
-    // group
-    float my_s = -INFINITY;
-    int my_i = kNoNode;
-    for (int n = tid; n < np; n += kThreads) {
-      const int* c = a.cap + n * 3;
-      int ut[3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        ut[r] = wrap_add(a.used_in[n * 3 + r], a.used_new[n * 3 + r]);
-      const int free[3] = {wrap_sub(c[0], ut[0]), wrap_sub(c[1], ut[1]),
-                           wrap_sub(c[2], ut[2])};
-      const int units = units_for(free, ask, urow[n], frow[n] != 0, count);
-      a.units[n] = units;
-      arow[n] = 0;
-      if (units > 0) {
-        const float s = score_fit(c[0], c[1], (float)ut[0], (float)ut[1],
-                                  (float)ask[0], (float)ask[1], brow[n]);
-        a.score[n] = s;
-        if (better(s, n, my_s, my_i)) {
-          my_s = s;
-          my_i = n;
-        }
-      }
-    }
-    waterfill(a, sh, my_s, my_i, count, arow, ask);
-  }
-  __syncthreads();
-  for (int t = tid; t < np * 3; t += kThreads)
-    a.used_out[t] = wrap_add(a.used_in[t], a.used_new[t]);
-}
-
-// ---------------------------------------------------------------------------
-// K5: the preemption solve as one thread-block cluster
-// ---------------------------------------------------------------------------
-
-struct PreemptArgs {
-  const int* cap;         // [np, 3]
-  const int* used_exist;  // [np, 3]
-  const int* prefix;      // [tp, np, 3] cumulative tier usage
+  const int* used_in;     // [np, 3]: K4's used, K5's used_exist
+  const int* prefix;      // K5: [tp, np, 3] cumulative tier usage
   int tp;
   const int* asks;        // [gp, 3]
   const int* counts;      // [gp]
   const uint8_t* feas;    // [gp, np] bool
   const float* bias;      // [gp, np]
   const int* ucap;        // [gp, np]
-  const int* tier_limit;  // [gp]
+  const int* tier_limit;  // K5: [gp]
   int np;
   int gp;
   int slice;              // S: nodes per block, a multiple of 128
-  int* work;              // global state (kSmem false): [9 * np]
+  int* work;              // global state (kSmem false): [state_words * np]
   int* assign;            // out [gp, np]
-  int* evict;             // out [gp, np]
+  int* evict;             // K5: out [gp, np]
   int* used_out;          // out [np, 3]
 };
 
-// Bytes of one group's rows of a slice of s nodes: bias, ucap, the tier
-// prefix row, feas.
-__host__ __device__ inline size_t preempt_row_bytes(int s) {
-  return (size_t)s * 21;
+// int32 words of state a node: score, units, used_new [3]; K5 adds phase
+// 1's take and freed [3]. The global workspace holds state_words * np.
+__host__ __device__ constexpr int state_words(bool preempt) {
+  return preempt ? 9 : 5;
 }
 
-// Shared bytes of a slice of s nodes: its state (score, units, take1,
-// used_new, freed: 36 B a node) and two buffers of rows.
-__host__ __device__ inline size_t preempt_smem_bytes(int s) {
-  return (size_t)s * 36 + 2 * preempt_row_bytes(s);
+// Bytes of one group's rows of a slice of s nodes: bias, ucap, K5's tier
+// prefix row, feas.
+__host__ __device__ constexpr size_t row_bytes(bool preempt, int s) {
+  return (size_t)s * (preempt ? 21 : 9);
+}
+
+// Shared bytes of a slice of s nodes: its state and two buffers of rows.
+__host__ __device__ constexpr size_t smem_bytes(bool preempt, int s) {
+  return (size_t)s * 4 * state_words(preempt) + 2 * row_bytes(preempt, s);
 }
 
 // 16-byte asynchronous copies of [src, src + bytes) (bytes a multiple of 16)
@@ -218,14 +103,14 @@ __device__ __forceinline__ void copy_rows_async(uint8_t* dst,
     __pipeline_memcpy_async(dst + off, src + off, 16);
 }
 
-__device__ __forceinline__ int tier_row(const PreemptArgs& a, int g) {
+__device__ __forceinline__ int tier_row(const SolveArgs& a, int g) {
   const int klim = a.tier_limit[g];
   return min(max(klim < 0 ? klim + a.tp : klim, 0), a.tp - 1);
 }
 
-template <bool kSmem>
+template <bool kSmem, bool kPreempt>
 __global__ void __launch_bounds__(kSelThreads, 1)
-solve_preempt_kernel(PreemptArgs a) {
+solve_placement_kernel(SolveArgs a) {
   __shared__ WaterShared ws;
   extern __shared__ __align__(16) uint8_t dsm[];
 
@@ -239,45 +124,59 @@ solve_preempt_kernel(PreemptArgs a) {
   own_range(n_loc, l0, l1);
 
   // the slice's state: shared memory, or its rows of the global workspace
+  // (score, units, used_new, then K5's take1 and freed, each np long)
   float* sc;
-  int *un, *take1, *used_new, *freed;
+  int *un, *used_new, *take1 = nullptr, *freed = nullptr;
   uint8_t* rowbuf = nullptr;
   if (kSmem) {
     sc = (float*)dsm;
     un = (int*)(dsm + (size_t)S * 4);
-    take1 = (int*)(dsm + (size_t)S * 8);
-    used_new = (int*)(dsm + (size_t)S * 12);
-    freed = (int*)(dsm + (size_t)S * 24);
-    rowbuf = dsm + (size_t)S * 36;
+    used_new = (int*)(dsm + (size_t)S * 8);
+    if (kPreempt) {
+      take1 = (int*)(dsm + (size_t)S * 20);
+      freed = (int*)(dsm + (size_t)S * 24);
+    }
+    rowbuf = dsm + (size_t)S * 4 * state_words(kPreempt);
   } else {
     sc = (float*)a.work + lo;
     un = a.work + (size_t)a.np + lo;
-    take1 = a.work + 2 * (size_t)a.np + lo;
-    used_new = a.work + 3 * (size_t)a.np + (size_t)lo * 3;
-    freed = a.work + 6 * (size_t)a.np + (size_t)lo * 3;
+    used_new = a.work + 2 * (size_t)a.np + (size_t)lo * 3;
+    if (kPreempt) {
+      take1 = a.work + 5 * (size_t)a.np + lo;
+      freed = a.work + 6 * (size_t)a.np + (size_t)lo * 3;
+    }
   }
   for (int l = l0; l < l1; ++l) {
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       used_new[l * 3 + r] = 0;
-      freed[l * 3 + r] = 0;
+      if (kPreempt) freed[l * 3 + r] = 0;
     }
   }
   waterfill_init(ws);
   int rounds = 0;
 
-  const size_t rb = preempt_row_bytes(S);
+  // the usage standing before this solve's placements, and K5's freed
+  // victim capacity taken off it
+  auto base_used = [&](int l, int r) {
+    const int ue = a.used_in[(size_t)(lo + l) * 3 + r];
+    return kPreempt ? wrap_sub(ue, freed[l * 3 + r]) : ue;
+  };
+
+  const size_t rb = row_bytes(kPreempt, S);
   auto prefetch = [&](int g, int b) {
     uint8_t* dst = rowbuf + b * rb;
     const size_t row = (size_t)g * a.np + lo;
     copy_rows_async(dst, (const uint8_t*)(a.bias + row), (size_t)n_loc * 4);
     copy_rows_async(dst + (size_t)S * 4, (const uint8_t*)(a.ucap + row),
                     (size_t)n_loc * 4);
-    copy_rows_async(dst + (size_t)S * 8,
-                    (const uint8_t*)(a.prefix + ((size_t)tier_row(a, g) *
-                                                 a.np + lo) * 3),
-                    (size_t)n_loc * 12);
-    copy_rows_async(dst + (size_t)S * 20, a.feas + row, (size_t)n_loc);
+    if (kPreempt)
+      copy_rows_async(dst + (size_t)S * 8,
+                      (const uint8_t*)(a.prefix + ((size_t)tier_row(a, g) *
+                                                   a.np + lo) * 3),
+                      (size_t)n_loc * 12);
+    copy_rows_async(dst + (size_t)S * (kPreempt ? 20 : 8), a.feas + row,
+                    (size_t)n_loc);
     __pipeline_commit();
   };
   if (kSmem) prefetch(0, 0);
@@ -290,7 +189,7 @@ solve_preempt_kernel(PreemptArgs a) {
     const float af1 = (float)ask[1];
     const float* brow;
     const int* urow;
-    const int* prow;
+    const int* prow = nullptr;
     const uint8_t* frow;
     if (kSmem) {
       __pipeline_wait_prior(0);
@@ -299,28 +198,34 @@ solve_preempt_kernel(PreemptArgs a) {
       const uint8_t* buf = rowbuf + (g & 1) * rb;
       brow = (const float*)buf;
       urow = (const int*)(buf + (size_t)S * 4);
-      prow = (const int*)(buf + (size_t)S * 8);
-      frow = buf + (size_t)S * 20;
+      if (kPreempt) prow = (const int*)(buf + (size_t)S * 8);
+      frow = buf + (size_t)S * (kPreempt ? 20 : 8);
     } else {
       const size_t row = (size_t)g * a.np + lo;
       brow = a.bias + row;
       urow = a.ucap + row;
-      prow = a.prefix + ((size_t)tier_row(a, g) * a.np + lo) * 3;
+      if (kPreempt)
+        prow = a.prefix + ((size_t)tier_row(a, g) * a.np + lo) * 3;
       frow = a.feas + row;
     }
     int* arow = a.assign + (size_t)g * a.np + lo;
-    int* erow = a.evict + (size_t)g * a.np + lo;
+    int* erow = kPreempt ? a.evict + (size_t)g * a.np + lo : nullptr;
+    if (count <= 0) {  // a padded group places nothing: zero rows, no score
+      for (int l = l0; l < l1; ++l) {
+        arow[l] = 0;
+        if (kPreempt) erow[l] = 0;
+      }
+      continue;
+    }
 
     // phase 1: _units_for and _score_nodes against the usage at the start
     // of the group
     for (int l = l0; l < l1; ++l) {
       const int* c = a.cap + (size_t)(lo + l) * 3;
-      const int* ue = a.used_exist + (size_t)(lo + l) * 3;
       int ut[3];
 #pragma unroll
       for (int r = 0; r < 3; ++r)
-        ut[r] = wrap_add(wrap_sub(ue[r], freed[l * 3 + r]),
-                         used_new[l * 3 + r]);
+        ut[r] = wrap_add(base_used(l, r), used_new[l * 3 + r]);
       const int free[3] = {wrap_sub(c[0], ut[0]), wrap_sub(c[1], ut[1]),
                            wrap_sub(c[2], ut[2])};
       const int units = units_for(free, ask, urow[l], frow[l] != 0, count);
@@ -331,25 +236,25 @@ solve_preempt_kernel(PreemptArgs a) {
     }
     const long long placed1 = cluster_waterfill(
         ws, rounds, sc, un, n_loc, count, [&](int l, int tk) {
-          take1[l] = tk;
+          if (kPreempt) take1[l] = tk;
+          else arow[l] = tk;
 #pragma unroll
           for (int r = 0; r < 3; ++r)
             used_new[l * 3 + r] =
                 wrap_add(used_new[l * 3 + r], wrap_mul(tk, ask[r]));
         });
     const int rem = count - (int)placed1;
+    if constexpr (!kPreempt) continue;  // K4: phase 1 is the whole group
 
     if (rem > 0) {
       // phase 2: the remainder on free capacity plus the preemptible
       // tiers' usage not yet claimed by an earlier group
       for (int l = l0; l < l1; ++l) {
         const int* c = a.cap + (size_t)(lo + l) * 3;
-        const int* ue = a.used_exist + (size_t)(lo + l) * 3;
         int free2[3], used2[3];
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
-          const int ut = wrap_add(wrap_sub(ue[r], freed[l * 3 + r]),
-                                  used_new[l * 3 + r]);
+          const int ut = wrap_add(base_used(l, r), used_new[l * 3 + r]);
           const int pre = max(wrap_sub(prow[l * 3 + r], freed[l * 3 + r]), 0);
           free2[r] = wrap_add(wrap_sub(c[r], ut), pre);
           used2[r] = max(wrap_sub(ut, pre), 0);
@@ -366,11 +271,9 @@ solve_preempt_kernel(PreemptArgs a) {
           // what phase 2 ate into victims rather than leftover free
           // capacity, against the usage standing after phase 1
           const int* c = a.cap + (size_t)(lo + l) * 3;
-          const int* ue = a.used_exist + (size_t)(lo + l) * 3;
 #pragma unroll
           for (int r = 0; r < 3; ++r) {
-            const int ut = wrap_add(wrap_sub(ue[r], freed[l * 3 + r]),
-                                    used_new[l * 3 + r]);
+            const int ut = wrap_add(base_used(l, r), used_new[l * 3 + r]);
             const int pre =
                 max(wrap_sub(prow[l * 3 + r], freed[l * 3 + r]), 0);
             const int normal_free = max(wrap_sub(c[r], ut), 0);
@@ -394,18 +297,16 @@ solve_preempt_kernel(PreemptArgs a) {
     const size_t n = (size_t)(lo + l);
 #pragma unroll
     for (int r = 0; r < 3; ++r)
-      a.used_out[n * 3 + r] =
-          wrap_add(wrap_sub(a.used_exist[n * 3 + r], freed[l * 3 + r]),
-                   used_new[l * 3 + r]);
+      a.used_out[n * 3 + r] = wrap_add(base_used(l, r), used_new[l * 3 + r]);
   }
   // no block exits while another may still read the leader's bins
   cluster.sync();
 }
 
-template <bool kSmem>
-cudaError_t launch_preempt(const PreemptArgs& a, int csize, size_t dyn,
+template <bool kSmem, bool kPreempt>
+cudaError_t launch_cluster(const SolveArgs& a, int csize, size_t dyn,
                            cudaStream_t st, int* placed_ok) {
-  auto* fn = solve_preempt_kernel<kSmem>;
+  auto* fn = solve_placement_kernel<kSmem, kPreempt>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
@@ -437,37 +338,13 @@ cudaError_t launch_preempt(const PreemptArgs& a, int csize, size_t dyn,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The workspace is one int32 buffer of 5 * np: score, units, used_new
-// [np, 3].
-extern "C" int nomad_solve_dense(const int* cap, const int* used,
-                                 const int* asks, const int* counts,
-                                 const uint8_t* feas, const float* bias,
-                                 const int* ucap, int np, int gp,
-                                 int* workspace, int* assign, int* used_out,
-                                 void* stream) {
-  Args a{cap,  used, asks, counts, feas, bias, ucap, np, gp,
-         reinterpret_cast<float*>(workspace), workspace + np,
-         workspace + 2 * (size_t)np, assign, used_out};
-  solve_dense_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The workspace is one int32 buffer of 9 * np (the slices' state where
-// it does not fit in shared memory). info (host, 4 ints) receives the
-// cluster size, whether the slices are in shared memory, the slice width
-// and the dynamic shared-memory bytes.
-extern "C" int nomad_solve_preempt(const int* cap, const int* used_exist,
-                                   const int* prefix, int tp, const int* asks,
-                                   const int* counts, const uint8_t* feas,
-                                   const float* bias, const int* ucap,
-                                   const int* tier_limit, int np, int gp,
-                                   int* workspace, int* assign, int* evict,
-                                   int* used_out, int* info, void* stream) {
-  PreemptArgs a{cap,  used_exist, prefix, tp,        asks,  counts,
-                feas, bias,       ucap,   tier_limit, np,   gp,
-                0,    workspace,  assign, evict,      used_out};
+// Launches the solve on the largest cluster that can be co-scheduled,
+// with the slices in shared memory where the rows are 16-byte aligned
+// (`aligned`, and Np a multiple of 128) and a slice fits. info (host, 4
+// ints) receives the cluster size, whether the slices are in shared
+// memory, the slice width and the dynamic shared-memory bytes.
+template <bool kPreempt>
+int launch_solve(SolveArgs a, bool aligned, cudaStream_t st, int* info) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -476,22 +353,18 @@ extern "C" int nomad_solve_preempt(const int* cap, const int* used_exist,
                              dev);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, solve_preempt_kernel<true>);
+  e = cudaFuncGetAttributes(&fa, solve_placement_kernel<true, kPreempt>);
   if (e != cudaSuccess) return (int)e;
-  // 16-byte copies of the rows need 16-byte aligned row starts
-  const bool aligned = np % 128 == 0 && ((uintptr_t)feas % 16) == 0 &&
-                       ((uintptr_t)bias % 16) == 0 &&
-                       ((uintptr_t)ucap % 16) == 0 &&
-                       ((uintptr_t)prefix % 16) == 0;
-  const cudaStream_t st = (cudaStream_t)stream;
+  aligned = aligned && a.np % 128 == 0 && ((uintptr_t)a.feas % 16) == 0 &&
+            ((uintptr_t)a.bias % 16) == 0 && ((uintptr_t)a.ucap % 16) == 0;
   for (int csize = kMaxCluster; csize >= 2; csize /= 2) {
-    const int per = (np + csize - 1) / csize;
+    const int per = (a.np + csize - 1) / csize;
     a.slice = (per + 127) / 128 * 128;
-    const size_t dyn = preempt_smem_bytes(a.slice);
+    const size_t dyn = smem_bytes(kPreempt, a.slice);
     const bool fits = aligned && fa.sharedSizeBytes + dyn <= (size_t)optin;
     int ok = 0;
-    e = fits ? launch_preempt<true>(a, csize, dyn, st, &ok)
-             : launch_preempt<false>(a, csize, 0, st, &ok);
+    e = fits ? launch_cluster<true, kPreempt>(a, csize, dyn, st, &ok)
+             : launch_cluster<false, kPreempt>(a, csize, 0, st, &ok);
     if (e != cudaSuccess) return (int)e;
     if (ok) {
       info[0] = csize;
@@ -502,4 +375,35 @@ extern "C" int nomad_solve_preempt(const int* cap, const int* used_exist,
     }
   }
   return (int)cudaErrorLaunchOutOfResources;  // no cluster can be placed
+}
+
+}  // namespace
+
+// K4. The workspace is one int32 buffer of 5 * np (the slices' state where
+// it does not fit in shared memory); info as launch_solve's.
+extern "C" int nomad_solve_dense(const int* cap, const int* used,
+                                 const int* asks, const int* counts,
+                                 const uint8_t* feas, const float* bias,
+                                 const int* ucap, int np, int gp,
+                                 int* workspace, int* assign, int* used_out,
+                                 int* info, void* stream) {
+  SolveArgs a{cap,  used, nullptr, 0,         asks,    counts,
+              feas, bias, ucap,    nullptr,   np,      gp,
+              0,    workspace, assign, nullptr, used_out};
+  return launch_solve<false>(a, true, (cudaStream_t)stream, info);
+}
+
+// K5. The workspace is one int32 buffer of 9 * np; info as launch_solve's.
+extern "C" int nomad_solve_preempt(const int* cap, const int* used_exist,
+                                   const int* prefix, int tp, const int* asks,
+                                   const int* counts, const uint8_t* feas,
+                                   const float* bias, const int* ucap,
+                                   const int* tier_limit, int np, int gp,
+                                   int* workspace, int* assign, int* evict,
+                                   int* used_out, int* info, void* stream) {
+  SolveArgs a{cap,  used_exist, prefix, tp,        asks,   counts,
+              feas, bias,       ucap,   tier_limit, np,    gp,
+              0,    workspace,  assign, evict,      used_out};
+  return launch_solve<true>(a, ((uintptr_t)prefix % 16) == 0,
+                            (cudaStream_t)stream, info);
 }

@@ -38,7 +38,7 @@
 //                       min(units, left) placed on each until the group
 //                       is placed, the card's own takes applied; in
 //                       compact mode the picks are kept for the rows;
-//   gathered_waterfill  full mode, one block: K4's pick loop over the
+//   gathered_waterfill  full mode, one block: a pick loop over the
 //                       gathered [Np] vectors (picking the best
 //                       unit-bearing node until `count` is placed is the
 //                       stable-argsort waterfill), applying the card's
@@ -427,6 +427,45 @@ struct WaterArgs {
   int* used;              // [rows, 3] the card's working used'
   int* assign;            // [gp, rows]
 };
+
+// Block-wide argmax of (s, i); every thread returns the winner.
+static __device__ void block_argmax(float s, int i, float* sh_s,
+                                    int* sh_i, float* out_s, int* out_i) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float os = __shfl_down_sync(0xffffffffu, s, off);
+    int oi = __shfl_down_sync(0xffffffffu, i, off);
+    if (better(os, oi, s, i)) {
+      s = os;
+      i = oi;
+    }
+  }
+  if (lane == 0) {
+    sh_s[warp] = s;
+    sh_i[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    s = sh_s[lane];
+    i = sh_i[lane];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      float os = __shfl_down_sync(0xffffffffu, s, off);
+      int oi = __shfl_down_sync(0xffffffffu, i, off);
+      if (better(os, oi, s, i)) {
+        s = os;
+        i = oi;
+      }
+    }
+    if (lane == 0) {
+      *out_s = s;
+      *out_i = i;
+    }
+  }
+  __syncthreads();
+}
 
 // Full mode: the best node that still has units takes min(units, left)
 // until the group is placed.

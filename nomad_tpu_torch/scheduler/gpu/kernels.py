@@ -508,7 +508,10 @@ def solve_placement(cap, used, asks, counts, feas, bias, units_cap):
     cap, used: [Np, 3] i32; asks: [Gp, 3] i32; counts: [Gp] i32;
     feas: [Gp, Np] bool; bias: [Gp, Np] f32; units_cap: [Gp, Np] i32.
     All on one device. Returns (assign [Gp, Np] i32, used' [Np, 3] i32);
-    used' is a fresh tensor: ``used`` is never written.
+    used' is a fresh tensor: ``used`` is never written. On CUDA it is one
+    launch of one thread-block cluster, the preemption solve's kernel
+    without its second phase (csrc/solve_dense.cu); it raises when no
+    cluster can be placed on the card.
     """
     if cap.device.type == "cpu":
         return solve_placement_plain(cap, used, asks, counts, feas, bias,
@@ -518,19 +521,28 @@ def solve_placement(cap, used, asks, counts, feas, bias, units_cap):
     np_, gp = cap.shape[0], asks.shape[0]
     assign = torch.empty((gp, np_), dtype=torch.int32, device=dev)
     used_out = torch.empty((np_, 3), dtype=torch.int32, device=dev)
+    # the slices' state where it does not fit in shared memory: score,
+    # units and used_new [Np, 3]
     work = torch.empty((5 * np_,), dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 4)()
     code = libkernels.library().nomad_solve_dense(
         cap.data_ptr(), used.data_ptr(), asks.data_ptr(), counts.data_ptr(),
         feas.data_ptr(), bias.data_ptr(), units_cap.data_ptr(), np_, gp,
-        work.data_ptr(), assign.data_ptr(), used_out.data_ptr(),
+        work.data_ptr(), assign.data_ptr(), used_out.data_ptr(), info,
         _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement")
     solve_placement.launches += 1
+    solve_placement.last_launch = {
+        "cluster": info[0], "smem_slices": bool(info[1]),
+        "slice": info[2], "smem_bytes": info[3],
+    }
     return assign, used_out
 
 
 solve_placement.launches = 0
+# the cluster size and slice placement the last launch chose
+solve_placement.last_launch = None
 
 
 def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,

@@ -139,7 +139,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p,         # feas, bias, ucap
         i, i,            # np, gp
         p, p, p,         # workspace, assign, used_out
-        p,               # stream
+        p, p,            # launch info (host), stream
     ]
     lib.nomad_solve_dense.restype = i
     lib.nomad_solve_preempt.argtypes = [

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the preemption solves (K5, and K7 on 8 shards) spend their time on
-the card, from clock64() counters in an instrumented copy of their sources.
+"""Where the preemption solves (K5, and K7 on 8 shards) and the dense solve
+(K4) spend their time on the card, from clock64() counters in an
+instrumented copy of their sources.
 
     python3 scripts/chip_preempt_split.py [--tree DIR] [--case wave|random]
 
@@ -13,7 +14,12 @@ preempt phase) and records K5's arguments from the wave's solve; with
 --case random it takes chip_smoke.py's seeded random dense problem at the
 same bucket (Np 10240, 80 groups, 4 tier rows), whose spread scores run
 the select's radix passes. K7 runs on the same arguments on 8 shards, as
-the mesh route solves that wave.
+the mesh route solves that wave. K4 is split on chip_smoke.py's placing
+case (kernel_checks' first dense problem: Np 10240, 80 groups, spread
+scores), where its tree runs K4 on K5's kernel template (solve_dense.cu
+solve_placement_kernel): the row prefetch wait, the scoring, the select
+and the row writes (the apply of each node's take into the assignment
+row and the slice's usage).
 
 Two designs are recognised from the sources:
   * the pick loop (solve_dense.cu's waterfill, solve_sharded.cu's
@@ -79,6 +85,8 @@ extern "C" int nomad_prof_read_{tu}(unsigned long long* out, int reset) {{
 K5_PHASES = {0: "prefetch_wait", 1: "score1", 2: "waterfill1", 3: "apply1",
              4: "score2", 5: "waterfill2", 6: "apply2"}
 K7_PHASES = {16: "load", 17: "waterfill", 18: "apply"}
+# K4 runs K5's kernel template without phase 2, so phase 1's slots
+K4_PHASES = {0: "prefetch_wait", 1: "score", 2: "select", 3: "row_writes"}
 K5_COUNTS = {10: "picks_or_rounds", 11: "waterfills", 12: "shortcuts"}
 PASS_PARTS = {28: "round0", 24: "bins", 25: "push", 26: "barrier1",
               27: "leader_scan", 29: "barrier2"}
@@ -227,6 +235,18 @@ def main() -> int:
         _, arrays = chip_smoke.dense_problem(np.random.default_rng(0))
         args = [torch.from_numpy(a).to("cuda") for a in arrays]
     want = tk.solve_placement_preempt_plain(*args)
+    # K4 on K5's template: chip_smoke.kernel_checks' placing case, its first
+    # dense problem, drawn after the compact cases
+    dense_src = (csrc / "solve_dense.cu").read_text()
+    k4_split = "solve_placement_kernel" in dense_src
+    rng = np.random.default_rng(0)
+    chip_smoke.compact_cases(rng)
+    k4_args = [torch.from_numpy(a).to("cuda")
+               for a in chip_smoke.dense_problem(rng, tiers=2)[0]]
+    k4_want = tk.solve_placement_plain(*k4_args)
+
+    def k4():
+        return tk.solve_placement(*k4_args)
 
     def k5():
         return tk.solve_placement_preempt(*args)
@@ -255,13 +275,14 @@ def main() -> int:
             readers[tu] = fn
         prof = (ctypes.c_ulonglong * 64)()
 
-        def counters(tu: str, fn) -> list:
+        def counters(tu: str, fn, ref=want) -> list:
             readers[tu](prof, 1)
             got = fn()
             torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, ref))
             if not same:
-                raise SystemExit(f"instrumented {tu} solve differs from K5's twin")
+                raise SystemExit(f"instrumented {tu} solve differs from "
+                                 "its twin")
             readers[tu](prof, 1)
             return list(prof)
 
@@ -270,13 +291,16 @@ def main() -> int:
         torch.cuda.synchronize()
         c5 = counters("dense", k5)
         c7 = counters("sharded", fn_k7)
+        c4 = counters("dense", k4, k4_want) if k4_split else None
         times = {"k5_clocked": chip_smoke.device_ms(k5, 10)[0],
-                 "k7_clocked": chip_smoke.device_ms(k7, 1)[0]}
+                 "k7_clocked": chip_smoke.device_ms(k7, 1)[0],
+                 "k4_clocked": chip_smoke.device_ms(k4, 10)[0]}
         use(csrc, tree / "nomad_tpu_torch" / "_build")
         k7()
         torch.cuda.synchronize()
         times["k5"], times["k5_enqueue"] = chip_smoke.device_ms(k5, 10)
         times["k7"], times["k7_enqueue"] = chip_smoke.device_ms(k7, 1)
+        times["k4"], times["k4_enqueue"] = chip_smoke.device_ms(k4, 10)
         out["k7_kernel_split_ms"] = chip_smoke.device_split_ms(k7)
 
     counts = args[4]
@@ -301,6 +325,26 @@ def main() -> int:
             # thread 0 of block 1 (the radix select's kernels only)
             "block1": {**{v: c[32 + k] for k, v in phases.items()},
                        **{v: c[32 + k] for k, v in PASS_PARTS.items()}},
+        }
+    out["k4"] = None
+    if c4 is not None:
+        parts = {v: c4[k] for k, v in PASS_PARTS.items()}
+        cycles = {v: c4[k] for k, v in K4_PHASES.items()}
+        total = sum(cycles.values()) + sum(parts.values())
+        k4_live = int((k4_args[3] > 0).sum())
+        out["k4"] = {
+            "cycles": cycles, "pass_parts": parts, "cycles_total": total,
+            "share": {k: v / max(total, 1)
+                      for k, v in {**cycles, **parts}.items()},
+            **{v: c4[k] for k, v in K5_COUNTS.items()}, "all_tied": c4[30],
+            "live_groups": k4_live,
+            "cycles_per_live_group": total / max(k4_live, 1),
+            "cycles_per_round": (cycles["select"] + sum(parts.values()))
+            / max(c4[10], 1),
+            "pass_parts_per_round": {k: v / max(c4[10], 1)
+                                    for k, v in parts.items()},
+            "placed": int(k4_want[0].sum()),
+            "launch": tk.solve_placement.last_launch,
         }
     out["device_ms"] = times
     out["k5_launch"] = getattr(tk.solve_placement_preempt, "last_launch", None)

@@ -347,6 +347,49 @@ def test_scatter_repeated_and_negative_indices():
     np.testing.assert_array_equal(out_set.numpy(), ref_set)
 
 
+def _scatter_add_case(name):
+    """The cases K3's one-launch kernel (one block per 256-row range of the
+    output) routes on, at a small size."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n, b = 1024, 300
+    used = rng.integers(0, 5000, (n, 3)).astype(np.int32)
+    rows = rng.integers(-3000, 3000, (b, 3)).astype(np.int32)
+    if name == "repeated":
+        idx = rng.choice(20, size=b).astype(np.int32)
+    elif name == "negative":
+        idx = rng.integers(-n - 20, 0, b).astype(np.int32)
+        idx[:3] = [-n, -1, -n - 1]
+    elif name == "pad":
+        idx = np.full(b, 1 << 30, dtype=np.int32)
+        idx[:100] = rng.choice(n, 100, replace=False)
+    elif name == "rows_past_a_block":
+        b = 2048
+        idx = rng.integers(0, n, b).astype(np.int32)
+        rows = rng.integers(-3000, 3000, (b, 3)).astype(np.int32)
+    elif name == "untouched_negative":
+        used = rng.integers(-3000, 5000, (n, 3)).astype(np.int32)
+        idx = rng.choice(n // 2, b, replace=False).astype(np.int32)
+    else:  # partial_last_block: 1000 rows, the last range holds 232
+        used = used[:1000]
+        idx = rng.integers(900, 1000, b).astype(np.int32)
+    return used, idx, rows
+
+
+@pytest.mark.parametrize("name", [
+    "repeated", "negative", "pad", "rows_past_a_block", "untouched_negative",
+    "partial_last_block",
+])
+def test_scatter_add_rows_edge_cases_match_reference(name):
+    used, idx, rows = _scatter_add_case(name)
+    ref = np.asarray(jsolver._scatter_add_rows(used.copy(), idx, rows))
+    assert (ref == 0).any()
+    out = tk.scatter_add_rows(
+        torch.from_numpy(used.copy()), torch.from_numpy(idx),
+        torch.from_numpy(rows),
+    )
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 # ---------------------------------------------------------------------------
 # the kernel build
 # ---------------------------------------------------------------------------
@@ -364,6 +407,13 @@ def test_kernel_sources_and_flags():
                  "solve_common.cuh"):
         src = (libkernels.CSRC / name).read_text()
         assert "__expf" not in src and "__fdividef" not in src
+    # K4 and K5 share one cluster kernel; the add is one kernel, one launch
+    dense = (libkernels.CSRC / "solve_dense.cu").read_text()
+    assert "solve_placement_kernel" in dense
+    assert "solve_dense_kernel" not in dense and "block_argmax" not in dense
+    scatter = (libkernels.CSRC / "scatter_rows.cu").read_text()
+    add = scatter[scatter.index('"C" int nomad_scatter_add_rows'):]
+    assert add.count("<<<") == 1 and "scatter_add_clamp_kernel<<<" in add
 
 
 def test_launch_counters_reset():

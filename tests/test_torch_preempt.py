@@ -12,6 +12,8 @@ then solve the same high-priority wave. Placements ((job id, alloc name)
 preempted_allocations and the failure counts are held exact.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -89,14 +91,64 @@ def _preempt(cap, used, asks, counts, feas, bias, ucap, prefix, tier_limit):
     )
 
 
-@pytest.mark.parametrize("seed", [0, 5, 19])
-def test_dense_matches_reference_random(seed):
-    rng = np.random.default_rng(seed)
-    cap, used, asks, counts, feas, bias, ucap = _problem(rng)
+# seeded random problems, then the cases K4's kernel routes on: every
+# group's units fit its count (the select's round-0 shortcut), Np not a
+# multiple of 128 (the kernel's global-memory slices), a batch padded with
+# count-0 groups, and counts well below the units on spread scores (radix
+# passes)
+DENSE_CASES = [0, 5, 19, "all_fit", "np_not_128", "padded_groups",
+               "radix_passes"]
+
+
+def _dense_case(case):
+    if isinstance(case, int):
+        rng = np.random.default_rng(case)
+        n, g = 1024, 48
+    else:
+        rng = np.random.default_rng(zlib.crc32(case.encode()))
+        n = 1000 if case == "np_not_128" else 1024
+        g = 16 if case == "radix_passes" else 48
+    cap, used, asks, counts, feas, bias, ucap = _problem(rng, n=n, g=g)
     # finite unit caps too, so the clip to ucap binds somewhere
     ucap = rng.integers(0, 6, size=ucap.shape).astype(np.int32)
-    assign, used_out = _dense((cap, used, asks, counts, feas, bias, ucap))
-    assert assign.sum() > 0 and (assign <= ucap).all()
+    if case == "all_fit":
+        counts = np.full(g, 1 << 20, dtype=np.int32)
+    elif case == "padded_groups":
+        counts[1::3] = 0
+        counts[-8:] = 0
+    elif case == "radix_passes":
+        counts = rng.integers(150, 400, size=g).astype(np.int32)
+    return cap, used, asks, counts, feas, bias, ucap
+
+
+def _check_dense_case(case, arrays, assign):
+    counts, ucap = arrays[3], arrays[6]
+    placed = assign.sum(axis=1)
+    assert placed.sum() > 0 and (assign <= ucap).all()
+    if case == "all_fit":
+        assert (placed < counts).all()
+    elif case == "padded_groups":
+        assert (assign[counts == 0] == 0).all() and placed.sum() > 0
+    elif case == "radix_passes":
+        assert (placed == counts).all()
+
+
+@pytest.mark.parametrize("seed", DENSE_CASES)
+def test_dense_matches_reference_random(seed):
+    arrays = _dense_case(seed)
+    assign, used_out = _dense(arrays)
+    _check_dense_case(seed, arrays, assign)
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_with_radix_select_matches_reference(monkeypatch, case):
+    """The dense solve with each group's waterfill computed as K4's kernel
+    computes it (the radix select's plain model) equals nomad_tpu's
+    solve_placement on every case above."""
+    arrays = _dense_case(case)
+    monkeypatch.setattr(tkernels, "_waterfill", _select_waterfill)
+    assign, _ = _dense(arrays)
+    _check_dense_case(case, arrays, assign)
 
 
 def test_dense_matches_reference_all_tied():
