@@ -88,7 +88,8 @@ __device__ __forceinline__ float xla_expf(float x) {
 
 // _score_nodes on one node: ScoreFitBinPack after adding one instance,
 // normalized to [0, 1], plus the group's bias. XLA rewrites the tail
-// clip(20 - total, 0, 18) / 18 + bias as fma(clip, f32(1/18), bias).
+// clip(20 - total, 0, 18) / 18 + bias as fma(clip, f32(1/18), bias), and
+// a denormal result is +0.0, as XLA runs with denormals off.
 __device__ __forceinline__ float score_fit(int cap0, int cap1, float used0,
                                            float used1, float ask0,
                                            float ask1, float bias) {
@@ -98,7 +99,8 @@ __device__ __forceinline__ float score_fit(int cap0, int cap1, float used0,
   const float free1 = 1.0f - (used1 + ask1) / cf1;
   const float total = xla_expf(free0 * kLn10) + xla_expf(free1 * kLn10);
   const float clip = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
-  return __fmaf_rn(clip, 1.0f / 18.0f, bias);
+  const float s = __fmaf_rn(clip, 1.0f / 18.0f, bias);
+  return fabsf(s) < 1.17549435e-38f ? 0.0f : s;
 }
 
 // ---------------------------------------------------------------------------

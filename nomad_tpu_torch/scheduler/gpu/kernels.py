@@ -100,6 +100,14 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
+def flush_denormal(x: torch.Tensor) -> torch.Tensor:
+    """x with every value below the smallest normal f32 in magnitude made
+    +0.0: XLA computes and compares f32 with denormals off, so its sort
+    ties a denormal score with zero."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(x), x)
+
+
 def fma_f32(a, b, c):
     """a * b + c on f32 tensors with one rounding, as a fused multiply-add
     (the card's __fmaf_rn) rounds it. The f32 product is exact in f64;
@@ -170,7 +178,7 @@ def score_nodes(cap_f, used_f, ask_f, bias_g):
     free = one - util / safe_cap  # [N, R]
     total = xla_exp(free[:, 0] * ln10) + xla_exp(free[:, 1] * ln10)
     clipped = torch.clamp(20.0 - total, 0.0, 18.0)
-    return fma_f32(clipped, _f32(1.0 / 18.0, cap_f), bias_g)
+    return flush_denormal(fma_f32(clipped, _f32(1.0 / 18.0, cap_f), bias_g))
 
 
 def unpack_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -205,9 +213,10 @@ def _units_for(free, ask, ucap, feas_g, count):
 def _waterfill(score, units, count, k=None):
     """Fill the score-sorted node axis until `count` instances are placed
     (nomad_tpu kernels._waterfill; with k, _waterfill_topk): a stable
-    descending order, so ties go to the lower node index."""
+    descending order, so ties go to the lower node index, and a denormal
+    score ties with zero."""
     zero = torch.zeros((), dtype=torch.int32, device=units.device)
-    order = torch.argsort(-score, stable=True)
+    order = torch.argsort(-flush_denormal(score), stable=True)
     if k is not None:
         order = order[:k]
     su = units[order]
@@ -232,7 +241,8 @@ def score_key(score):
 def waterfill_select_plain(score, units, count):
     """_waterfill computed as csrc/solve_common.cuh cluster_waterfill
     computes it, a unit-weighted radix select of the boundary node, in
-    plain PyTorch: unit-bearing nodes keyed by score_key, 8-bit digits
+    plain PyTorch: unit-bearing nodes keyed by score_key (a denormal
+    score keyed as zero, as score_fit flushes the kernel's), 8-bit digits
     from the top, the shortcut when every unit fits, the early cut when a
     fixed digit's bin holds exactly the need, and the nodes tied at the
     boundary score sharing what is left in node-index order. Sums are in
@@ -244,7 +254,7 @@ def waterfill_select_plain(score, units, count):
     live = units > 0
     if need <= 0 or not bool(live.any()):
         return take
-    bits = score_key(score)
+    bits = score_key(flush_denormal(score))
     u = torch.where(live, units.long(), torch.zeros_like(bits))
     if int(u.sum()) <= need:
         return torch.where(live, units, take)
@@ -692,7 +702,7 @@ def _shard_candidates(score_loc, units_loc, d: int, w: int, k: int):
     """_topk_fill's local step on shard d: its k best rows, best first,
     ties to the lower index (lax.top_k's order) as (score, units, global
     index). A stable sort: torch.topk leaves the tie order open."""
-    order = torch.argsort(-score_loc, stable=True)[:k]
+    order = torch.argsort(-flush_denormal(score_loc), stable=True)[:k]
     return (score_loc[order], units_loc[order],
             (order + d * w).to(torch.int32))
 
@@ -704,7 +714,7 @@ def _candidate_fill(vs, us, gs, count, n: int):
     order, their takes)."""
     zero = torch.zeros((), dtype=torch.int32, device=us.device)
     o0 = torch.argsort(gs, stable=True)
-    order = torch.argsort(-vs[o0], stable=True)
+    order = torch.argsort(-flush_denormal(vs[o0]), stable=True)
     su_s = us[o0][order]
     prior = torch.cumsum(su_s, dim=0, dtype=torch.int32) - su_s
     take_sorted = torch.minimum(torch.maximum(count - prior, zero), su_s)
