@@ -101,7 +101,42 @@ Phases (one JSON line each, with its seconds):
                 same 100 jobs on fresh servers, serial, pipelined,
                 pipelined, serial, all traced: the walls and the
                 overlap ratio, a number to record, not a gate);
-  7. mesh     — the node-sharded route (kernels also checks the sharded
+  7. pool     — the solver pool (nomad_tpu's server/solver_pool.py and
+                scheduler/tpu/remote_solve.py, ported) over the port's RPC
+                fabric: the port's Server as leader (the GPU batch worker,
+                batches of 8, pipelined) and two solver-role members, each
+                node an RPCServer on 127.0.0.1 with a shared secret, a
+                ConnPool, a gossip Membership and a SolverPool, wired as
+                nomad_tpu's ClusterServer wires them; the members' hosts
+                read the leader's store (the port has no raft
+                replication: perfectly synced replicas, as bench.py's
+                c2m_pool). pool.c2m: each member warmed once through
+                SolverPool.Sync over RPC, then c2m's 100 jobs and the
+                server phase's roll wave through Server.job_register,
+                every batch dispatched to a member, launch counters zeroed
+                just before the first register and read after the roll:
+                100,000 then 118,000 live allocs, no node over capacity,
+                every eval complete, no local fallback, member fault or
+                device failover, each member warmed once and solving, its
+                resident tensors on cuda:0, K1 launched once per compact
+                solve on a member, K2 not donated at least once; each
+                member's first K1 and K2 calls held against their twins;
+                it prints the walls, rates, partial commits (a remote
+                batch never chains, so the applier trims overlapping
+                batches), the summed solver.pool.dispatch and
+                solver.pool.remote spans and the request and reply bytes
+                per batch. pool.failover: a faultplane drop on one
+                member's SolverPool.Solve: exactly one member fault and
+                one device failover, that batch re-solved by
+                solve_host_fallback, every later batch on the surviving
+                member, every alloc placed. pool.lockstep: one member,
+                the worker driven by hand, c2m's first 4 batches each
+                solved on one snapshot on the leader's card and through
+                the member over RPC: identical placements. pool.scaling:
+                bench.py's c2m_pool shapes (2,000 nodes, 6 batches of 8
+                jobs x 100) with 1 and 2 members, in the order 1, 2, 2,
+                1: evals/s and the ratio, recorded, not gated;
+  8. mesh     — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -115,7 +150,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  8. replay   — each kernel's first call on its path replayed against its
+  9. replay   — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -130,7 +165,7 @@ Phases (one JSON line each, with its seconds):
                 also at the server phase's first calls (`server`,
                 `server_copy` in their lines, exact, timed beside their
                 bounds);
-  9. small    — the same three waves at 200 nodes, and at 500 nodes on
+  10. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
@@ -142,8 +177,10 @@ Phases (one JSON line each, with its seconds):
 
 Then the card's name and power limit (nvidia-smi), one {"kernels": [...]}
 line (K1-K3 also carry `server_launches`, their count in the server
-phase), and last {"ok": true, "device": {...}}. Any failure raises: the
-exit code is nonzero and no result line is printed. Without a CUDA
+phase; every kernel `pool_launches`, its count in pool.c2m; K1 and K2
+`pool`, each member's first call held and timed), and last {"ok": true,
+"device": {...}}. Any failure raises: the exit code is nonzero and no
+result line is printed. Without a CUDA
 device it exits 2 before doing anything.
 """
 
@@ -156,7 +193,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -1488,8 +1527,8 @@ def batch_traces() -> list:
     return [t for t in trace.finished_traces() if t.name == "tpu.batch"]
 
 
-def span_sums_ms(traces: list) -> dict:
-    out = {name: 0.0 for name in SERVER_SPANS}
+def span_sums_ms(traces: list, names=SERVER_SPANS) -> dict:
+    out = {name: 0.0 for name in names}
     for t in traces:
         for span in t.spans[1:]:
             if span.name in out:
@@ -2122,6 +2161,453 @@ def replay_server(srec: dict, launches: dict) -> dict:
     return held
 
 
+# ---------------------------------------------------------------------------
+# the solver pool: the leader's batch worker dispatches every batch to warm
+# members over real sockets (fabric + gossip + pool, wired the way
+# nomad_tpu's ClusterServer.__init__ wires them, cluster.py:1299-1322)
+# ---------------------------------------------------------------------------
+
+POOL_SECRET = "chip-smoke-pool"
+# the port has no raft replication yet: every member's host reads the
+# leader's own store, the perfectly synced replica of bench.py's c2m_pool
+# (POOL_CAVEAT_TEXT, bench.py:1872)
+POOL_CAVEAT = ("members read the leader's store: perfectly synced "
+               "replicas, as bench.py's c2m_pool")
+# the leader's batch traces with the members' segments merged in
+POOL_SPANS = SERVER_SPANS + ("solver.pool.dispatch", "rpc.call",
+                             "solver.pool.remote")
+# bench.py run_c2m_pool_config's shapes (BENCH_POOL_NODES/JOBS/COUNT/
+# BATCHES/PAIRS), without its injected 0.8 s device latency
+POOL_SCALING = {"nodes": 2000, "jobs": 8, "count": 100, "batches": 6,
+                "pairs": 2}
+# which pool member the calling thread is solving for (PoolRecorder)
+_POOL_MEMBER = threading.local()
+
+
+class PoolNode:
+    """One in-process cluster node: an RPCServer on 127.0.0.1 with the
+    shared secret, a ConnPool, a Membership joined by gossip and a
+    SolverPool (role "solver" advertises the serf tag solver=1). `host`
+    owns the state store and the scheduler config the member's device
+    comes from."""
+
+    def __init__(self, node_id: str, host, role: str = "") -> None:
+        from nomad_tpu_torch.rpc import ConnPool, RPCServer
+        from nomad_tpu_torch.server.membership import Membership
+        from nomad_tpu_torch.server.solver_pool import SolverPool
+
+        self.node_id, self.server = node_id, host
+        self.rpc = RPCServer(host="127.0.0.1", secret=POOL_SECRET)
+        self.rpc.chaos_label = node_id
+        self.pool = ConnPool(secret=POOL_SECRET)
+        self.pool.owner = node_id
+        self.serf = Membership(
+            node_id, self.rpc.addr, pool=self.pool,
+            tags={"role": "server"}, on_event=self._on_member_event)
+        self.rpc.register("Serf", self.serf.endpoint)
+        self.solver_pool = SolverPool(self, role=role)
+        self.rpc.register("SolverPool", self.solver_pool.endpoint)
+        self.rpc.start()
+        self.serf.start()
+        self.solver_pool.start()
+
+    def _on_member_event(self, kind, member) -> None:
+        self.solver_pool.on_member_event(kind, member)
+
+    def solver(self):
+        return self.solver_pool.endpoint.local_solver(build=False)
+
+    def shutdown(self) -> None:
+        self.solver_pool.stop()
+        self.serf.stop()
+        self.rpc.shutdown()
+        self.pool.shutdown()
+
+
+def tag_member(node: PoolNode) -> None:
+    """Mark the member's solves and syncs with its id on the calling
+    thread, so a PoolRecorder keeps each member's first calls apart."""
+    rs = node.solver()
+
+    def tagged(fn):
+        def call(*args, **kwargs):
+            _POOL_MEMBER.id = node.node_id
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _POOL_MEMBER.id = None
+        return call
+
+    rs.solve, rs.warm = tagged(rs.solve), tagged(rs.warm)
+
+
+class PoolRecorder(Recorder):
+    """A Recorder that keeps the first accepted call per pool member."""
+
+    def __init__(self, mod, name: str, keep=None) -> None:
+        super().__init__(mod, name, keep)
+        self.first_by = {}
+
+    def __call__(self, *args, **kwargs):
+        member = getattr(_POOL_MEMBER, "id", None)
+        if (member is not None and member not in self.first_by
+                and (self.keep is None or self.keep(args))):
+            self.first_by[member] = (
+                [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args], dict(kwargs))
+        return super().__call__(*args, **kwargs)
+
+
+def pool_recorders() -> dict:
+    return {
+        "solve_placement_compact": PoolRecorder(solver_mod,
+                                                "solve_placement_compact"),
+        "scatter_rows": PoolRecorder(solver_mod, "scatter_rows",
+                                     keep=lambda a: a[3] is True),
+        "scatter_rows_copy": PoolRecorder(solver_mod, "scatter_rows",
+                                          keep=lambda a: a[3] is False),
+    }
+
+
+def pool_cluster(device: str, nodes: list, n_members: int,
+                 pipeline: bool = True, leader: bool = True) -> dict:
+    """The port's Server (start_server: the GPU batch worker, batches of
+    SERVER_BATCH) as the pool's leader, and n_members solver-role members
+    whose hosts share its store, joined by gossip; the worker's
+    solver_pool is the leader's tracker. Each member is warmed once
+    through SolverPool.Sync over RPC."""
+    srv, _ = start_server(device, nodes, pipeline=pipeline, leader=leader)
+    lead = PoolNode("leader", srv)
+    members = [
+        PoolNode(f"m{i}", types.SimpleNamespace(
+            state=srv.state,
+            scheduler_config=SchedulerConfig(device=device)),
+            role="solver")
+        for i in range(n_members)
+    ]
+    for m in members:
+        check(m.serf.join([lead.rpc.addr]) == 1, f"{m.node_id} did not join")
+    deadline = time.monotonic() + 30
+    while len([r for r in lead.solver_pool.members()
+               if r["status"] == "alive" and not r["self"]]) < n_members:
+        check(time.monotonic() < deadline,
+              "the pool members never became alive at the leader")
+        time.sleep(0.02)
+    for m in members:
+        lead.pool.call(m.rpc.addr, "SolverPool.Sync",
+                       {"min_index": srv.state.latest_index()},
+                       timeout_s=300)
+        tag_member(m)
+    srv.tpu_worker.solver_pool = lead.solver_pool
+    return {"srv": srv, "leader": lead, "members": members}
+
+
+def pool_shutdown(pc: dict) -> None:
+    pc["srv"].shutdown()
+    for node in pc["members"] + [pc["leader"]]:
+        node.shutdown()
+
+
+def pool_numbers(pc: dict, before: dict, after: dict, traces: list,
+                 wall: float, n_jobs: int, n_allocs: int) -> dict:
+    """wave_numbers plus the pool's: dispatches, faults, local
+    fallbacks, the request and reply bytes per batch, the summed pool
+    spans, and each member's solves, syncs and warmups."""
+    def count(name):
+        return (after["counters"].get(name, 0)
+                - before["counters"].get(name, 0))
+
+    out = wave_numbers(before, after, traces, wall, n_jobs, n_allocs)
+    # a member's segment records device.wait once per K1 launch, a
+    # spread-relaxation retry's included
+    out["compact_batches"] = sum(
+        1 for t in traces for sp in t.spans if sp.name == "device.wait")
+    out["spans_ms"] = span_sums_ms(traces, POOL_SPANS)
+    sent = count("nomad.rpc.sent_bytes.SolverPool.Solve")
+    reply = count("nomad.rpc.reply_bytes.SolverPool.Solve")
+    dispatched = count("nomad.solver.pool.dispatched")
+    out.update({
+        "dispatched": dispatched,
+        "member_faults": count("nomad.solver.pool.member_fault"),
+        "fallback_local": count("nomad.solver.pool.fallback_local"),
+        "request_bytes_per_batch": sent / max(dispatched, 1),
+        "reply_bytes_per_batch": reply / max(dispatched, 1),
+        "members": {m.node_id: m.solver().stats() for m in pc["members"]},
+    })
+    return out
+
+
+def pool_c2m(device: str, n_nodes: int, n_jobs: int, count: int,
+             on_phase) -> dict:
+    """c2m's fleet and jobs through Server.job_register on the leader,
+    then the server phase's roll wave, every batch solved by one of two
+    warm members over RPC. Launch counters zeroed just before the first
+    register and read after the roll wave. Returns the cluster (left
+    running for pool.failover), the launches and the numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.metrics import Registry
+
+    metrics._install_registry(Registry())
+    trace.clear_finished()
+    pc = pool_cluster(device, c2m_nodes(n_nodes), 2)
+    srv = pc["srv"]
+    tk.reset_launch_counts()
+    m0 = metrics.snapshot()
+    jobs = [make_job(f"pool-{j}", count) for j in range(n_jobs)]
+    wall1 = register_and_wait(srv, jobs)
+    check_server_state(srv, n_jobs * count)
+    m1 = metrics.snapshot()
+    c2m = pool_numbers(pc, m0, m1, batch_traces(), wall1, n_jobs,
+                       n_jobs * count)
+    on_phase("pool.c2m.wave", wall1, caveat=POOL_CAVEAT, **c2m)
+    traces = batch_traces()
+    trace.clear_finished()
+    roll = [make_job(f"pool-roll-{j}", count)
+            for j in range(SERVER_ROLL_NEW)]
+    for k, at in enumerate(SERVER_ROLL_AT):
+        stored = srv.state.job_by_id(jobs[k].namespace, jobs[k].id)
+        roll.insert(at, rolled(stored, count // 2))
+    wall2 = register_and_wait(srv, roll)
+    want_live = (n_jobs * count - len(SERVER_ROLL_AT) * (count - count // 2)
+                 + SERVER_ROLL_NEW * count)
+    check_server_state(srv, want_live)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {
+        "solve_placement_compact": tk.solve_placement_compact.launches,
+        "scatter_rows": tk.scatter_rows.launches,
+        "scatter_rows_copy": tk.scatter_rows.launches_copy,
+        "scatter_add_rows": tk.scatter_add_rows.launches,
+    }
+    m2 = metrics.snapshot()
+    rollw = pool_numbers(pc, m1, m2, batch_traces(), wall2, len(roll),
+                         SERVER_ROLL_NEW * count
+                         + len(SERVER_ROLL_AT) * (count // 2))
+    on_phase("pool.c2m.roll", wall2, **rollw)
+    traces += batch_traces()
+    whole = pool_numbers(pc, m0, m2, traces, wall1 + wall2, 0, 0)
+    return {"pc": pc, "live": want_live, "launches": launches,
+            "counters": m2["counters"], "whole": whole,
+            "numbers": {"wall_s": wall1, "jobs_per_s": n_jobs / wall1,
+                        "allocs_per_s": n_jobs * count / wall1,
+                        "roll_wall_s": wall2,
+                        "partial_commits": whole["partial_commits"],
+                        "compact_batches": whole["compact_batches"],
+                        "dispatched": whole["dispatched"],
+                        "spans_ms": whole["spans_ms"],
+                        "request_bytes_per_batch":
+                            whole["request_bytes_per_batch"],
+                        "reply_bytes_per_batch":
+                            whole["reply_bytes_per_batch"]}}
+
+
+def check_pool(res, device: str) -> None:
+    """Every batch on a member: no local fallback, no fault, no
+    failover; each member warmed once and solved; its resident tensors
+    on the card; K1 launched once per compact solve on a member."""
+    c, w = res["counters"], res["whole"]
+    check(w["fallback_local"] == 0,
+          f"{w['fallback_local']} batches fell back to the leader")
+    check(w["member_faults"] == 0, f"{w['member_faults']} member faults")
+    check(c.get("nomad.worker.device_failover", 0) == 0,
+          "a device failover in a phase that injects nothing")
+    check(c.get("nomad.worker.invoke.failed", 0) == 0,
+          "a batch failed to solve or commit")
+    check(w["dispatched"] == w["batches"],
+          f"{w['dispatched']} dispatches for {w['batches']} batches")
+    srv = res["pc"]["srv"]
+    check(srv.tpu_worker._resident is None,
+          "the leader solved a batch on its own card")
+    want = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device("cpu")
+    for m in res["pc"]["members"]:
+        st = m.solver().stats()
+        check(st["warmups"] == 1 and st["solves"] >= 1,
+              f"member {m.node_id}: {st}")
+        r = m.solver()._resident
+        check(r._cap_dev.device == want and r._used_dev.device == want,
+              f"member {m.node_id}'s resident tensors are not on {want}")
+    if device == "cuda":
+        k1 = res["launches"]["solve_placement_compact"]
+        check(k1 == w["compact_batches"] and k1 > 0,
+              f"K1 ran {k1} times for {w['compact_batches']} compact "
+              "solves on the members")
+        check(res["launches"]["scatter_rows_copy"] >= 1,
+              "K2's non-donated mode was not launched in the pool phase")
+
+
+def pool_failover(pc: dict, live: int, n_jobs: int = 24,
+                  count: int = 50) -> dict:
+    """A faultplane drop on one member's SolverPool.Solve (both of the
+    ConnPool's attempts of one call): that batch is exactly one member
+    fault and one device_failover, re-solved by solve_host_fallback;
+    every later batch goes to the surviving member; every alloc placed.
+    The worker restarts unpipelined first: a pipelined solve stage can
+    dispatch its next batch before the failing call's thread records
+    the fault, and pick the failing member again when both are busy."""
+    from nomad_tpu_torch import faultplane, metrics
+    from nomad_tpu_torch.server.solver_pool import RemotePendingBatch
+
+    srv, lead = pc["srv"], pc["leader"]
+    w = srv.tpu_worker
+    w.stop()
+    w.pipeline = False
+    w.start()
+    victim = lead.solver_pool._pick()[0]
+    survivor = [m.node_id for m in pc["members"] if m.node_id != victim][0]
+    before = lead.solver_pool.stats_snapshot()
+    rows0 = {r["id"]: r for r in before["members"]}
+    calls = []
+    real = RemotePendingBatch.solve_host_fallback
+
+    def counted(self):
+        calls.append(len(self._evals))
+        return real(self)
+
+    m0 = metrics.snapshot()["counters"]
+    RemotePendingBatch.solve_host_fallback = counted
+    plane = faultplane.install(faultplane.FaultPlane(seed=0))
+    for node in [lead] + pc["members"]:
+        plane.register_addr(node.node_id, node.rpc.addr)
+    plane.drop_rpc(dst=victim, method="SolverPool.Solve", times=2)
+    try:
+        jobs = [make_job(f"pool-fo-{j}", count, constrained=False)
+                for j in range(n_jobs)]
+        wall = register_and_wait(srv, jobs)
+    finally:
+        faultplane.uninstall()
+        RemotePendingBatch.solve_host_fallback = real
+    m1 = metrics.snapshot()["counters"]
+    after = lead.solver_pool.stats_snapshot()
+    rows1 = {r["id"]: r for r in after["members"]}
+    faults = after["faults"] - before["faults"]
+    failovers = (m1.get("nomad.worker.device_failover", 0)
+                 - m0.get("nomad.worker.device_failover", 0))
+    to_victim = rows1[victim]["dispatched"] - rows0[victim]["dispatched"]
+    to_survivor = (rows1[survivor]["dispatched"]
+                   - rows0[survivor]["dispatched"])
+    check(faults == 1, f"{faults} member faults, want exactly 1")
+    check(failovers == 1, f"{failovers} device failovers, want exactly 1")
+    check(len(calls) == 1, f"solve_host_fallback ran {len(calls)} times")
+    check(to_victim == 1, f"{to_victim} batches went to the failing member")
+    check(to_survivor >= 1, "no later batch went to the surviving member")
+    check(after["fallback_local"] == before["fallback_local"],
+          "a batch fell back to the leader's own solve")
+    check_server_state(srv, live + n_jobs * count)
+    return {"wall_s": wall, "victim": victim, "member_faults": faults,
+            "failovers": failovers, "fallback_evals": calls[0],
+            "to_survivor": to_survivor, "rpc_drops": plane.fired}
+
+
+def pool_lockstep(device: str, n_nodes: int, n_jobs: int, count: int,
+                  n_batches: int) -> dict:
+    """One member, the worker driven by hand: each of c2m's first
+    n_batches batches is solved on one snapshot on the leader's own card
+    (solve_eval_batch_begin on the worker's resident state) and through
+    the member over RPC (SolverPool.dispatch_batch), before the commit;
+    the local plans are then committed. Returns the placements of each
+    side by (job, alloc name, node), per batch."""
+    from nomad_tpu_torch.scheduler.gpu import solve_eval_batch_begin
+    from nomad_tpu_torch.scheduler.gpu.remote_solve import CollectingPlanner
+
+    pc = pool_cluster(device, c2m_nodes(n_nodes), 1, leader=False)
+    srv = pc["srv"]
+    w = srv.tpu_worker
+    w.solver_pool = None
+    sides = {"local": [], "member": []}
+    try:
+        for j in range(n_jobs):
+            srv.job_register(make_job(f"pool-lock-{j}", count))
+        for _ in range(n_batches):
+            batch = []
+            while len(batch) < SERVER_BATCH:
+                ev, tok = srv.eval_broker.dequeue(["service"], timeout_s=1)
+                check(ev is not None, "the broker ran dry")
+                batch.append((ev, tok))
+            evals = [e for e, _ in batch]
+            snap = srv.state.snapshot()
+            remote = pc["leader"].solver_pool.dispatch_batch(
+                evals, snap, CollectingPlanner(), w.config)
+            check(remote is not None, "no pool member to dispatch to")
+            w._ensure_resident()
+            local = solve_eval_batch_begin(
+                snap, CollectingPlanner(), evals, w.config,
+                resident=w._resident)
+            for side, pending in (("member", remote), ("local", local)):
+                sides[side].append(sorted(
+                    (a.job_id, a.name, a.node_id)
+                    for p in pending.finish().values()
+                    for a in ([a for al in p.node_allocation.values()
+                               for a in al]
+                              + [a for b in p.alloc_batches
+                                 for a in b.materialize()])))
+            w._commit(batch, local, snap, threading.Event(), {"ok": None},
+                      None)
+    finally:
+        pool_shutdown(pc)
+    return sides
+
+
+def pool_scaling(device: str, cfg: dict = POOL_SCALING) -> dict:
+    """bench.py run_c2m_pool_config's shapes through the pool: per trial
+    a fresh leader and 1 or 2 fresh members (2,000 nodes), one
+    unmeasured warm wave of 8 jobs x 100 per member, then 6 batches of 8
+    jobs x 100 registered at once; committed evals/s over that window.
+    Pool sizes 1 and 2 interleaved 1, 2, 2, 1 (ABBA). Returns the rates
+    and the ratio, a number to record, not a gate: bench.py's 1.5x gate
+    belongs to its injected-latency device model, and these members
+    share one card and one interpreter."""
+    order = []
+    for p in range(cfg["pairs"]):
+        order.extend((1, 2) if p % 2 == 0 else (2, 1))
+    rates = {1: [], 2: []}
+    for t, size in enumerate(order):
+        pc = pool_cluster(device, c2m_nodes(cfg["nodes"]), size)
+        srv = pc["srv"]
+        try:
+            register_and_wait(srv, [
+                make_job(f"sc{t}-w{j}", cfg["count"], constrained=False)
+                for j in range(cfg["jobs"] * size)])
+            jobs = [make_job(f"sc{t}-{j}", cfg["count"], constrained=False)
+                    for j in range(cfg["jobs"] * cfg["batches"])]
+            wall = register_and_wait(srv, jobs)
+            check(all(m.solver().stats()["warmups"] == 1
+                      for m in pc["members"]),
+                  "a pool member warmed more than once")
+            rates[size].append(len(jobs) / wall)
+        finally:
+            pool_shutdown(pc)
+    med = {s: statistics.median(r) for s, r in rates.items()}
+    return {"evals_per_s": {str(s): r for s, r in rates.items()},
+            "median_evals_per_s": {str(s): v for s, v in med.items()},
+            "ratio_2_over_1": med[2] / med[1], "order": order,
+            "caveat": POOL_CAVEAT}
+
+
+def replay_pool(prec: dict, n_members: int) -> dict:
+    """Each member's first K1 call, first donated K2 call (its delta
+    sync) and, where it ran, first non-donated K2 call (a batch's stops)
+    against its twin, exact, then timed beside its bound: {kernel name:
+    {member: numbers}}."""
+    held = {}
+    for name, r in prec.items():
+        for member, (args, kw) in sorted(r.first_by.items()):
+            if name == "solve_placement_compact":
+                h = hold_k1(args, kw)
+            else:
+                h = hold_k2(*args[:4])
+            check(h["max_abs_err"] == 0,
+                  f"member {member}'s first {name} call differs")
+            h.update(bound(h.pop("nbytes"), h.pop("ops", 0)))
+            held.setdefault(name, {})[member] = h
+    for name in ("solve_placement_compact", "scatter_rows"):
+        check(len(held.get(name, {})) == n_members,
+              f"not every member's first {name} call was recorded")
+    check(len(held.get("scatter_rows_copy", {})) >= 1,
+          "no member's non-donated K2 call was recorded")
+    return held
+
+
 def replay(rec: dict, launches: dict, drain_rec, dev, seed: int) -> list:
     """Each kernel's first main-path call against its twin, then timed;
     K2's non-donated mode also on the drain path's first such call and on
@@ -2548,7 +3034,47 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("server.overlap", t0, **server_overlap("cuda", 10000, 100, 1000))
 
-    # 7. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 7. the solver pool: c2m's jobs and the roll wave through the leader's
+    #    Server, every batch solved by one of two warm members over real
+    #    sockets, launch counters zeroed just before the first register
+    #    and read after the roll; then a member fault, the leader's card
+    #    against a member in lockstep, and the pool's scaling
+    t_pool = time.perf_counter()
+    pool_rec = pool_recorders()
+    trace.set_enabled(True)
+    try:
+        pool_res = pool_c2m("cuda", 10000, 100, 1000, on_server)
+    finally:
+        trace.set_enabled(False)
+        for r in reversed(list(pool_rec.values())):
+            r.restore()
+    pool_launches = pool_res["launches"]
+    try:
+        check(all(t.is_cuda for r in pool_rec.values() for t in r.tensors),
+              "a tensor of the pool path is on the host")
+        check_pool(pool_res, "cuda")
+        pool_held = replay_pool(pool_rec, len(pool_res["pc"]["members"]))
+        phase("pool.c2m", t_pool, launches=pool_launches,
+              caveat=POOL_CAVEAT, **pool_res["numbers"])
+        t0 = time.perf_counter()
+        phase("pool.failover", t0,
+              **pool_failover(pool_res["pc"], pool_res["live"]))
+    finally:
+        pool_shutdown(pool_res["pc"])
+    del pool_res, pool_rec
+    t0 = time.perf_counter()
+    lock = pool_lockstep("cuda", 10000, 100, 1000, 4)
+    check(lock["member"] == lock["local"],
+          "pool lockstep: the member's plans differ from the leader's")
+    check(all(len(b) > 0 for b in lock["local"]),
+          "pool lockstep: a batch placed nothing")
+    phase("pool.lockstep", t0, batches=len(lock["local"]),
+          allocs_compared=sum(len(b) for b in lock["local"]))
+    t0 = time.perf_counter()
+    phase("pool.scaling", t0, **pool_scaling("cuda"))
+    phase("pool", t_pool, launches=pool_launches)
+
+    # 8. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -2561,7 +3087,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 8. replay each path's calls against the twins, and time them
+    # 9. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -2574,9 +3100,15 @@ def main() -> int:
     if "scatter_rows_copy" in server_held:
         kernels[[k["name"] for k in kernels].index("scatter_rows")][
             "server_copy"] = server_held["scatter_rows_copy"]
+    for k in kernels:
+        k["pool_launches"] = pool_launches.get(k["name"], 0)
+        if k["name"] in pool_held:
+            k["pool"] = pool_held[k["name"]]
+    kernels[[k["name"] for k in kernels].index("scatter_rows")][
+        "pool_copy"] = pool_held["scatter_rows_copy"]
     phase("replay", t0)
 
-    # 9. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    # 10. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
     #    bench.py's preempt config and its drain config, and its pipeline
     #    config through the batch worker driven by hand: card == CPU twins
     t0 = time.perf_counter()

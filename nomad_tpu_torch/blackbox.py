@@ -3,8 +3,8 @@
 Port of ``nomad_tpu/blackbox.py``, cut to the journal the scheduling
 pipeline writes: a bounded ring of control-plane transitions (a
 timestamp, a kind, a key and a small detail dict). The eval broker
-journals admission sheds, the plan applier duplicate-mint trims, and
-the heartbeat wheel expiry batches. The trigger engine, the incident
+journals admission sheds, the plan applier duplicate-mint trims, the
+heartbeat wheel expiry batches, and the solver pool its member faults. The trigger engine, the incident
 ledger and the timeline math stay with the reference's agent.
 
 A stdlib-only leaf: the deque maxlen is the eviction bound, and
@@ -27,6 +27,7 @@ MAX_KINDS = 64
 KIND_DUP_MINT = "dup_mint"        # plan-apply duplicate-mint trim
 KIND_SHED = "shed"                # eval-broker admission shed
 KIND_EXPIRY = "heartbeat_expiry"  # heartbeat wheel expiry batch
+KIND_POOL_FAULT = "pool_fault"    # solver-pool member failed a dispatch
 
 class FlightRecorder:
     """Bounded journal ring."""

@@ -32,6 +32,11 @@ _BYTES_KEY = "$b64"
 _REGISTRY: dict[str, type] = {}
 
 _SCALARS = frozenset((bool, int, float, str, bytes, type(None)))
+# element types a list may hold and still be its own wire form: a
+# PlacementBatch's node-id and name columns (one string per node of the
+# solve's table) then cross the wire with one C-level type scan instead
+# of a to_wire/from_wire call per element
+_FLAT = frozenset((bool, int, float, str, type(None)))
 # cls -> [(name, default, factory_or_None, has_default)]
 _FIELD_PLANS: dict[type, list] = {}
 
@@ -96,6 +101,8 @@ def from_wire(data: Any) -> Any:
     if data is None or cls in _SCALARS:
         return data
     if isinstance(data, list):
+        if set(map(type, data)) <= _FLAT:
+            return list(data)
         return [from_wire(v) for v in data]
     if not isinstance(data, dict):
         raise TypeError(f"cannot decode wire value of type {cls.__name__}")
@@ -228,6 +235,8 @@ def to_wire(obj: Any, _elide: bool = False) -> Any:
     if obj is None or cls in _SCALARS:
         return obj
     if cls is list:
+        if set(map(type, obj)) <= _FLAT:
+            return list(obj)
         return [to_wire(v, _elide) for v in obj]
     if cls is dict:
         # a "$"-prefixed key in user data could collide with the tags:

@@ -1,13 +1,21 @@
 """The fault plane: deterministic, seedable device-stage fault injection.
 
-Port of ``nomad_tpu/faultplane.py``, cut to the one hook the batch
-worker reads: :meth:`FaultPlane.on_device`, called at the start of the
-solve stage's dispatch (``"dispatch"``) and of the commit stage's device
-wait (``"finish"``). A firing rule raises :class:`DeviceFault`, whose
-``retriable`` flag the worker classifies: retriable faults fall back to
-the host solve path, terminal ones nack the batch. :class:`DeviceLost` is
-a real CUDA fault at the device wait or readback, always terminal. The
-RPC, disk and partition rules stay with the reference's chaos harness.
+Port of ``nomad_tpu/faultplane.py``, cut to the hooks the port has:
+
+  - the batch worker's device stage -> :meth:`FaultPlane.on_device`,
+    called at the start of the solve stage's dispatch (``"dispatch"``)
+    and of the commit stage's device wait (``"finish"``). A firing rule
+    raises :class:`DeviceFault`, whose ``retriable`` flag the worker
+    classifies: retriable faults fall back to the host solve path,
+    terminal ones nack the batch. :class:`DeviceLost` is a real CUDA
+    fault at the device wait or readback, always terminal;
+  - ``rpc/client.py`` ConnPool.call -> :meth:`FaultPlane.on_rpc_call`
+    (drops, delays and partitions by node label);
+  - ``rpc/server.py`` RPCServer._dispatch ->
+    :meth:`FaultPlane.on_rpc_serve` (a delivered request whose answer is
+    lost).
+
+The disk rules stay with the reference's raft store.
 
 Every hook is a single module-attribute check when no plane is
 installed; nothing here touches production behavior until
@@ -18,7 +26,8 @@ from __future__ import annotations
 
 import random
 import threading
-from typing import Callable, Optional
+import time
+from typing import Callable, Iterable, Optional
 
 # The installed plane. Hook sites read this module attribute directly
 # (`if faultplane.plane is not None: ...`) so the disabled cost is one
@@ -36,6 +45,17 @@ def install(p: "FaultPlane") -> "FaultPlane":
 def uninstall() -> None:
     global plane
     plane = None
+
+
+class InjectedRPCError(ConnectionError):
+    """An injected connection-level drop; subclasses ConnectionError so
+    the production rundown/redial paths treat it as a real network
+    failure."""
+
+
+class DropResponse(Exception):
+    """Server-side injection: swallow the request, send no response
+    (the caller sees a timeout, as with a partition after delivery)."""
 
 
 class DeviceFault(Exception):
@@ -79,8 +99,82 @@ class FaultPlane:
         self.rng = random.Random(seed)
         self._lock = threading.Lock()
         self._rules: list[_Rule] = []
+        # node label <-> advertised fabric addr, so partition rules
+        # written in terms of node ids can match a ConnPool's dial target
+        self._addr_label: dict[tuple[str, int], str] = {}
         # observability for assertions: kind -> injections fired
         self.fired: dict[str, int] = {}
+
+    # -- wiring --------------------------------------------------------
+
+    def register_addr(self, label: str, addr: tuple[str, int]) -> None:
+        with self._lock:
+            self._addr_label[(addr[0], addr[1])] = label
+
+    def label_of(self, addr) -> str:
+        try:
+            return self._addr_label.get((addr[0], addr[1]), "")
+        except (TypeError, IndexError):
+            return ""
+
+    # -- rule builders -------------------------------------------------
+
+    def _add(self, rule: _Rule) -> "FaultPlane":
+        with self._lock:
+            self._rules.append(rule)
+        return self
+
+    @staticmethod
+    def _rpc_match(src, dst, method):
+        def match(s, d, m):
+            return (
+                (src is None or s == src)
+                and (dst is None or d == dst)
+                and (method is None or m == method or m.startswith(method))
+            )
+
+        return match
+
+    def drop_rpc(self, src: Optional[str] = None, dst: Optional[str] = None,
+                 method: Optional[str] = None, prob: float = 1.0,
+                 times: Optional[int] = None) -> "FaultPlane":
+        """Fail matching client-side calls with InjectedRPCError before
+        the frame is written (the request is never delivered)."""
+        return self._add(_Rule("rpc.drop", self._rpc_match(src, dst, method),
+                               None, prob, times))
+
+    def delay_rpc(self, delay_s: float, src: Optional[str] = None,
+                  dst: Optional[str] = None, method: Optional[str] = None,
+                  prob: float = 1.0, times: Optional[int] = None) -> "FaultPlane":
+        return self._add(_Rule("rpc.delay", self._rpc_match(src, dst, method),
+                               delay_s, prob, times))
+
+    def partition(self, group_a: Iterable[str],
+                  group_b: Iterable[str]) -> "FaultPlane":
+        """Symmetric partition between two node-label groups: every call
+        whose (src, dst) crosses the cut is dropped, both directions."""
+        a, b = frozenset(group_a), frozenset(group_b)
+
+        def match(s, d, m):
+            return (s in a and d in b) or (s in b and d in a)
+
+        return self._add(_Rule("rpc.drop", match, None, 1.0, None))
+
+    def isolate(self, label: str, others: Iterable[str]) -> "FaultPlane":
+        return self.partition([label], others)
+
+    def drop_response(self, label: Optional[str] = None,
+                      method: Optional[str] = None, prob: float = 1.0,
+                      times: Optional[int] = None) -> "FaultPlane":
+        """Server-side: the handler never runs and no response is sent —
+        the request was DELIVERED but the answer is lost."""
+
+        def match(lbl, m):
+            return (label is None or lbl == label) and (
+                method is None or m == method or m.startswith(method)
+            )
+
+        return self._add(_Rule("serve.drop", match, None, prob, times))
 
     def fail_device(self, phase: Optional[str] = None, retriable: bool = True,
                     prob: float = 1.0, times: Optional[int] = None) -> "FaultPlane":
@@ -90,11 +184,9 @@ class FaultPlane:
         def match(p):
             return phase is None or p == phase
 
-        with self._lock:
-            self._rules.append(
-                _Rule("device.fail", match, retriable, prob, times)
-            )
-        return self
+        return self._add(_Rule("device.fail", match, retriable, prob, times))
+
+    # -- hook entry points (called from production code) ---------------
 
     def _fire(self, kinds: tuple[str, ...], *args):
         """Match rules of the given kinds against args; return the first
@@ -114,6 +206,22 @@ class FaultPlane:
                 self.fired[rule.kind] = self.fired.get(rule.kind, 0) + 1
                 return rule
         return None
+
+    def on_rpc_call(self, src_label: str, addr, method: str) -> None:
+        dst = self.label_of(addr)
+        rule = self._fire(("rpc.delay",), src_label, dst, method)
+        if rule is not None:
+            time.sleep(rule.action)
+        rule = self._fire(("rpc.drop",), src_label, dst, method)
+        if rule is not None:
+            raise InjectedRPCError(
+                f"injected rpc drop {src_label or '?'} -> {dst or addr} {method}"
+            )
+
+    def on_rpc_serve(self, label: str, method: str) -> None:
+        rule = self._fire(("serve.drop",), label, method)
+        if rule is not None:
+            raise DropResponse(f"injected response drop at {label} {method}")
 
     def on_device(self, phase: str) -> None:
         rule = self._fire(("device.fail",), phase)

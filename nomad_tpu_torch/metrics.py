@@ -13,6 +13,9 @@ One process-global registry with three primitives:
                  snapshot answers both "p99 since boot" and "p99 right
                  now")
 
+plus providers: callbacks a subsystem registers (register_provider) and
+a snapshot samples as gauges.
+
 Everything is threadsafe and cheap enough for hot paths: an observe is a
 bucket index (bisect over ~50 precomputed bounds) plus bounded array
 increments under the registry lock. Percentiles are computed at SNAPSHOT
@@ -227,6 +230,10 @@ class Registry:
         self._counters: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
         self._hists: dict[str, Histogram] = {}
+        # name -> [(handle, fn)]: subsystems sampled at snapshot time
+        # (the newest registration under a name is the live one, so a
+        # restarted subsystem's stale provider never shadows it)
+        self._providers: dict[str, list] = {}
 
     # -- write side ----------------------------------------------------
 
@@ -252,6 +259,32 @@ class Registry:
     def time_ns(self, name: str, ns: int) -> None:
         self.observe(name, ns / 1e9)
 
+    def register_provider(self, name: str, fn) -> object:
+        """Sample a subsystem's live stats at snapshot time. The callback
+        returns {suffix: value}; published as gauges under name.suffix.
+        Returns a handle for unregister_provider."""
+        handle = object()
+        with self._lock:
+            self._providers.setdefault(name, []).append((handle, fn))
+        return handle
+
+    def unregister_provider(self, name: str, handle: object = None) -> None:
+        """Remove a provider. With a handle, removes exactly that
+        registration (other instances under the same name survive);
+        without one, removes the newest."""
+        with self._lock:
+            stack = self._providers.get(name)
+            if not stack:
+                return
+            if handle is None:
+                stack.pop()
+            else:
+                self._providers[name] = [
+                    (h, f) for h, f in stack if h is not handle
+                ]
+            if not self._providers[name]:
+                del self._providers[name]
+
     # -- read side -----------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -262,6 +295,18 @@ class Registry:
             }
             counters = dict(self._counters)
             gauges = dict(self._gauges)
+            providers = {
+                name: stack[-1][1]
+                for name, stack in self._providers.items() if stack
+            }
+        # provider callbacks run OUTSIDE the lock: they may take their
+        # own subsystem's locks
+        for name, fn in providers.items():
+            try:
+                for suffix, value in (fn() or {}).items():
+                    gauges[f"{name}.{suffix}"] = value
+            except Exception:
+                gauges[f"{name}.error"] = 1
         return {
             "uptime_seconds": round(time.time() - _START, 3),
             "counters": counters,
@@ -278,6 +323,7 @@ class Registry:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
+            self._providers.clear()
 
 
 _global = Registry()
@@ -295,6 +341,8 @@ set_gauge = _global.set_gauge
 observe = _global.observe
 time_ns = _global.time_ns
 snapshot = _global.snapshot
+register_provider = _global.register_provider
+unregister_provider = _global.unregister_provider
 
 
 def _install_registry(reg: Registry) -> Registry:
@@ -302,6 +350,7 @@ def _install_registry(reg: Registry) -> Registry:
     Every call site reads `metrics.<fn>` through the module at call
     time, so rebinding here retargets them all."""
     global _global, incr, set_gauge, observe, time_ns, snapshot
+    global register_provider, unregister_provider
     old = _global
     _global = reg
     incr = reg.incr
@@ -309,4 +358,6 @@ def _install_registry(reg: Registry) -> Registry:
     observe = reg.observe
     time_ns = reg.time_ns
     snapshot = reg.snapshot
+    register_provider = reg.register_provider
+    unregister_provider = reg.unregister_provider
     return old

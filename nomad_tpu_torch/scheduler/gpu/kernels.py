@@ -38,7 +38,9 @@ here with a plain PyTorch twin beside it:
 
 A wrapper runs the plain twin only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream or raises; it never
-falls back. Each wrapper counts its launches in ``<wrapper>.launches``.
+falls back. Each wrapper counts its launches in ``<wrapper>.launches``,
+under one lock: solver-pool members in one process launch from several
+threads at once, and their counts must come out exact.
 """
 
 from __future__ import annotations
@@ -341,6 +343,16 @@ def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# a bare `fn.launches += 1` is a read and a write that two launching
+# threads can interleave, losing a count
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn, n: int = 1, attr: str = "launches") -> None:
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def solve_placement_compact(
     cap, used, asks, counts, feas_packed, feas_idx, bias_rows, bias_idx,
     ucap_rows, ucap_idx, *, max_count: int,
@@ -405,7 +417,7 @@ def solve_placement_compact(
         info, _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement_compact")
-    solve_placement_compact.launches += 1
+    _count(solve_placement_compact)
     solve_placement_compact.last_launch = {
         "cluster": info[0], "smem_slices": bool(info[1]),
         "slice": info[2], "smem_bytes": info[3],
@@ -542,7 +554,7 @@ def solve_placement(cap, used, asks, counts, feas, bias, units_cap):
         _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement")
-    solve_placement.launches += 1
+    _count(solve_placement)
     solve_placement.last_launch = {
         "cluster": info[0], "smem_slices": bool(info[1]),
         "slice": info[2], "smem_bytes": info[3],
@@ -595,7 +607,7 @@ def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,
         used_out.data_ptr(), info, _stream_ptr(dev),
     )
     libkernels.check(code, "solve_placement_preempt")
-    solve_placement_preempt.launches += 1
+    _count(solve_placement_preempt)
     solve_placement_preempt.last_launch = {
         "cluster": info[0], "smem_slices": bool(info[1]),
         "slice": info[2], "smem_bytes": info[3],
@@ -669,9 +681,9 @@ def scatter_rows(used, idx, rows, donate: bool = True):
         idx.shape[0], used.shape[0], _stream_ptr(used.device),
     )
     libkernels.check(code, "scatter_rows")
-    scatter_rows.launches += 1
+    _count(scatter_rows)
     if not donate:
-        scatter_rows.launches_copy += 1
+        _count(scatter_rows, attr="launches_copy")
     return out
 
 
@@ -692,7 +704,7 @@ def scatter_add_rows(used, idx, rows):
         idx.shape[0], used.shape[0], _stream_ptr(used.device),
     )
     libkernels.check(code, "scatter_add_rows")
-    scatter_add_rows.launches += 1
+    _count(scatter_add_rows)
     return out
 
 
@@ -929,7 +941,7 @@ def _launch(counter, name: str, dev, *args) -> None:
         code = getattr(libkernels.library(), name)(*args, _stream_ptr(dev))
     libkernels.check(code, name)
     if counter is not None:
-        counter.launches += 1
+        _count(counter)
 
 
 def _card_inputs(c, gp, rows, asks, counts, **parts) -> None:
@@ -1216,8 +1228,8 @@ def sharded_solver_preempt(cap, used_exist, prefix_used, asks, counts, feas,
             entry["graph"].replay()
             out = tuple(static[k].clone() for k in ("assign", "evict", "out"))
             entry["done"].record(stream)
-        fn.launches += entry["launches"]
-        fn.graph_replays += 1
+        _count(fn, entry["launches"])
+        _count(fn, attr="graph_replays")
         fn.last_route = route
     return out
 
@@ -1235,7 +1247,8 @@ KERNELS = (solve_placement_compact, solve_placement, solve_placement_preempt,
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-    scatter_rows.launches_copy = 0
-    sharded_solver_preempt.graph_replays = 0
+    with _COUNT_LOCK:
+        for fn in KERNELS:
+            fn.launches = 0
+        scatter_rows.launches_copy = 0
+        sharded_solver_preempt.graph_replays = 0

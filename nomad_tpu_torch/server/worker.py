@@ -361,6 +361,12 @@ class TPUBatchWorker:
         # per-shard once and steady-state solves ship only usage deltas
         # into the owning shard. Built at the first solve.
         self._resident = None
+        # Solver-pool tier (server/solver_pool.py): when a cluster node
+        # attaches a tracker here, mega-batch drains dispatch to warm
+        # remote members instead of the local card; the interactive lane
+        # and the empty-pool case keep the local path. None on a
+        # standalone Server (no cluster/pool).
+        self.solver_pool = None
         # set when _ensure_resident replaced an unusable mesh by one card
         self.mesh_degraded = False
         # set (to the fault's text) when a CUDA fault killed the device
@@ -507,6 +513,24 @@ class TPUBatchWorker:
         # a stopped worker object stays referenced by the server; don't
         # let it pin the last batch's device tensors and snapshot
         self._prev = None
+
+    def stats_snapshot(self) -> dict:
+        """Live pipeline depth (same idiom as the broker/plan-queue stats
+        surfaces): reads live structures only, no locks beyond the
+        queue's own."""
+        prev = self._prev
+        return {
+            "pipeline": self.pipeline,
+            "batch_size": self.batch_size,
+            "processed": self.processed,
+            "schedulers": list(self.schedulers),
+            "commit_queue_depth": self._commit_q.qsize(),
+            "chain_in_flight": bool(prev is not None and not prev[1].is_set()),
+            "held_interactive": self._held is not None,
+            "lane_ledger_len": len(self._lane_ledger),
+            "submit_ewma_s": round(self.backpressure.submit_ewma_s, 6),
+            "lane_priority": self.lane_priority,
+        }
 
     # -- solve stage ----------------------------------------------------
 
@@ -830,6 +854,29 @@ class TPUBatchWorker:
             # injected dispatch-stage fault: surfaces through the solve
             # stage's existing failure path (nack + redeliver)
             faultplane.plane.on_device("dispatch")
+        # Dispatch policy (server/solver_pool.py): mega-batch drains route
+        # to the solver pool when a healthy member exists; the
+        # interactive lane (allow_chain=False — the host-microsolve
+        # path) always solves locally. A remote batch never consumes
+        # the local used' chain: overlapping remote solves serialize
+        # through the applier's plan verification instead, so
+        # chained_on is dropped (the parent's verdict must not nack a
+        # batch that never saw its tensor).
+        if allow_chain and self.solver_pool is not None:
+            with trace.span(
+                trace.current(), "solver.pool.dispatch", evals=len(evals)
+            ):
+                remote = self.solver_pool.dispatch_batch(
+                    evals, snapshot, self.planner, self.config,
+                    extra_usage=self._lane_extra_usage(snapshot, None),
+                )
+            if remote is not None:
+                metrics.observe("nomad.tpu.batch_evals", len(evals))
+                metrics.observe(
+                    "nomad.tpu.batch_dispatch_seconds",
+                    time.perf_counter() - t0,
+                )
+                return remote, snapshot, None
         self._ensure_resident()
         pending = solve_eval_batch_begin(
             snapshot, self.planner, evals, self.config, used_chain=chain,

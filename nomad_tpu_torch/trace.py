@@ -12,7 +12,10 @@ otherwise the call is one flag test.
     and a finished trace lands in a bounded ring
     (:func:`finished_traces`).
   * a thread-local *current* context (:func:`current`/:func:`use`)
-    carries the trace through call chains.
+    carries the trace through call chains;
+  * across an RPC hop the caller sends :func:`wire_ref`, the handler
+    records into :func:`open_segment`, and the segment's spans ride
+    back in the reply for :meth:`TraceContext.merge_remote`.
 
 Tracing is OFF by default: :func:`start_trace` returns ``None`` and
 :func:`stage` allocates nothing. Spans use ``time.monotonic_ns`` (never
@@ -77,6 +80,17 @@ class Span:
             d["attrs"] = self.attrs
         return d
 
+    @staticmethod
+    def from_wire(d: dict) -> "Span":
+        return Span(
+            d.get("name", ""),
+            d.get("id", ""),
+            d.get("parent", ""),
+            int(d.get("start", 0)),
+            int(d.get("end", 0)),
+            d.get("attrs") or None,
+        )
+
 
 class _SpanHandle:
     """Context-manager handle for an open span (ends it on exit)."""
@@ -134,21 +148,28 @@ class TraceContext:
     parent under the recording thread's innermost open span, or the
     root."""
 
-    __slots__ = ("trace_id", "name", "attrs", "spans", "root", "_seq",
-                 "_lock", "_active", "_finished")
+    __slots__ = ("trace_id", "name", "attrs", "spans", "root", "remote",
+                 "_prefix", "_seq", "_lock", "_active", "_finished")
 
-    def __init__(self, name: str, attrs: Optional[dict] = None) -> None:
+    def __init__(self, name: str, attrs: Optional[dict] = None,
+                 trace_id: str = "", parent_id: str = "",
+                 remote: bool = False) -> None:
         from .structs import generate_uuid
 
         uid = generate_uuid().replace("-", "")
-        self.trace_id = uid[:16]
+        self.trace_id = trace_id or uid[:16]
         self.name = name
         self.attrs = dict(attrs) if attrs else {}
+        # span ids are unique per context, so a remote segment merged
+        # into its caller's trace never collides with the caller's ids
+        self._prefix = uid[16:24]
+        self.remote = remote
         self._seq = itertools.count(1)
         self._lock = threading.Lock()
         self._active = threading.local()
         self._finished = False
-        self.root = Span(name, f"{self.trace_id}-0", "", now_ns(), 0, None)
+        self.root = Span(name, f"{self._prefix}-0", parent_id, now_ns(), 0,
+                         None)
         # list.append and next() on the counter are GIL-atomic: children
         # may be appended from any thread without a lock
         self.spans: list[Span] = [self.root]
@@ -169,7 +190,7 @@ class TraceContext:
         for spans opened on one thread and ended on another (the
         broker's queue-wait span)."""
         pid = parent.span_id if parent is not None else self._parent_id()
-        s = Span(name, f"{self.trace_id}-{next(self._seq)}", pid,
+        s = Span(name, f"{self._prefix}-{next(self._seq)}", pid,
                  now_ns(), 0, attrs or None)
         self.spans.append(s)
         if not detached:
@@ -195,7 +216,7 @@ class TraceContext:
         thread's innermost open span (or the root)."""
         end = now_ns()
         s = Span(
-            name, f"{self.trace_id}-{next(self._seq)}", self._parent_id(),
+            name, f"{self._prefix}-{next(self._seq)}", self._parent_id(),
             end - max(0, int(dur_ns)), end, attrs,
         )
         self.spans.append(s)
@@ -204,9 +225,30 @@ class TraceContext:
     def set_attr(self, key: str, value) -> None:
         self.attrs[key] = value
 
+    def merge_remote(self, spans: list[dict], anchor: Optional[Span]) -> None:
+        """Fold a remote segment's spans in, re-based so the segment root
+        starts at `anchor` (the local rpc.call span): remote monotonic
+        clocks share no base with ours, but durations are trustworthy."""
+        if not spans:
+            return
+        decoded = [Span.from_wire(d) for d in spans]
+        # the segment root is the span whose parent is not in the segment
+        ids = {s.span_id for s in decoded}
+        root = next((s for s in decoded if s.parent_id not in ids),
+                    decoded[0])
+        shift = ((anchor.start_ns if anchor is not None else now_ns())
+                 - root.start_ns)
+        for s in decoded:
+            s.start_ns += shift
+            s.end_ns += shift
+            if s is root and anchor is not None:
+                s.parent_id = anchor.span_id
+            self.spans.append(s)
+
     def finish(self, status: str = "ok", record: bool = True) -> None:
         """End the root span and (once) hand the trace to the recorder's
-        ring of finished traces."""
+        ring of finished traces; a remote segment never lands there (its
+        spans travel back to the caller)."""
         with self._lock:
             if self._finished:
                 return
@@ -214,7 +256,7 @@ class TraceContext:
         if not self.root.end_ns:
             self.root.end_ns = now_ns()
         self.attrs.setdefault("status", status)
-        if record:
+        if record and not self.remote:
             _finished.append(self)
 
     def to_wire(self) -> dict:
@@ -318,3 +360,26 @@ def stage_attrs(name: str, dur_ns: int, **attrs) -> None:
     ctx = getattr(_tls, "ctx", None)
     if ctx is not None:
         ctx.add_stage(name, dur_ns, attrs=attrs)
+
+
+# -- wire helpers for the RPC envelope -------------------------------------
+# (the envelope field names live in rpc/wire.py TRACE_KEY/TRACE_SPANS_KEY)
+
+
+def wire_ref(ctx: TraceContext, parent: Optional[Span] = None) -> dict:
+    return {
+        "id": ctx.trace_id,
+        "parent": parent.span_id if parent is not None else ctx.root.span_id,
+    }
+
+
+def open_segment(name: str, ref: dict) -> TraceContext:
+    """Server side of an RPC hop: a remote segment of the caller's trace.
+    Its spans travel back in the response; it never lands in the local
+    ring (the originator owns the stitched trace)."""
+    return TraceContext(
+        name,
+        trace_id=str(ref.get("id", "")),
+        parent_id=str(ref.get("parent", "")),
+        remote=True,
+    )
