@@ -136,7 +136,45 @@ Phases (one JSON line each, with its seconds):
                 bench.py's c2m_pool shapes (2,000 nodes, 6 batches of 8
                 jobs x 100) with 1 and 2 members, in the order 1, 2, 2,
                 1: evals/s and the ratio, recorded, not gated;
-  8. mesh     — the node-sharded route (kernels also checks the sharded
+  8. lifecycle — the job lifecycle (nomad_tpu's server/job_plan.py,
+                deployment_watcher.py, drainer.py, periodic.py, ported)
+                through the Server's own endpoints on c2m's 10,000 nodes,
+                the GPU batch worker pipelined in batches of 8 with
+                small_batch_threshold 0 (every solve on the card) and the
+                deployment watcher, node drainer and periodic dispatcher
+                on their threads. Setup: 20 of c2m's jobs x 1,000 allocs
+                with an update stanza (max_parallel 250, canary 10,
+                min_healthy_time 0, healthy_deadline 5m, auto_revert) and
+                a migrate stanza (max_parallel 100), each first
+                deployment driven to successful. Then, with the launch
+                counters zeroed: lifecycle.plan (Server.job_plan of a
+                21st job and of job 0 with a new task env: 1,000 creates,
+                10 canaries, nothing written, K1 per plan, each plan's
+                ms); lifecycle.deploy (4 jobs rolled: 10 canaries each
+                placed, marked healthy, promoted, then rolled 250 at a
+                time, each step marked healthy, until 4,000 allocs run
+                the new version and each deployment is successful and
+                its version stable); lifecycle.revert (job 5's canaries
+                marked unhealthy: the watcher fails the deployment and
+                reverts to a version whose spec equals the stable one's,
+                the canaries stopped, 1,000 allocs on the stable spec);
+                lifecycle.drain (a seeded 10% of the nodes drained with a
+                deadline an hour away: two drainer passes, each marking
+                at most 100 per group and timed, every replacement
+                reported running, then the deadline forced; no alloc
+                left on a drained node, each drained node's strategy
+                cleared and ineligible, every group back at its count);
+                lifecycle.periodic (a */5 prohibit_overlap batch job's
+                child by PeriodicDispatch.force_launch and a
+                parameterized job's by Server.job_dispatch, 100 allocs
+                each). Health is reported through alloc_set_health and
+                update_allocs_from_client (LIFE_HEALTH: no client runs).
+                No device failover or failed batch, the resident tensors
+                on cuda:0, every eval complete, no node over capacity,
+                K1 once per compact batch and per plan, K2 not donated at
+                least once. Each step prints its wall, evals, batches,
+                watcher passes and summed spans;
+  9. mesh     — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -150,7 +188,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  9. replay   — each kernel's first call on its path replayed against its
+  10. replay  — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -164,20 +202,28 @@ Phases (one JSON line each, with its seconds):
                 their cluster kernel alone, with its launch shape; K1-K3
                 also at the server phase's first calls (`server`,
                 `server_copy` in their lines, exact, timed beside their
-                bounds);
-  10. small   — the same three waves at 200 nodes, and at 500 nodes on
+                bounds), K1 and K2 not donated at the lifecycle phase's
+                (`lifecycle`, `lifecycle_copy`);
+  11. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
                 its pipeline config (2,000 nodes, 64 jobs x 300 allocs,
                 the batch worker driven by hand in batches of 8, each
-                solved while its parent's commit is pending), on the
-                card and on the CPU twins: identical placements, victims,
-                eval outcomes and chain verdicts.
+                solved while its parent's commit is pending), and the
+                lifecycle's five steps at 200 nodes (20 jobs of 50,
+                canary 2, max_parallel 10, migrate 5) with every batch
+                and watcher pass driven by hand (lifecycle_lockstep,
+                which tests/test_torch_lifecycle.py also runs against
+                nomad_tpu's Server), on the card and on the CPU twins:
+                identical placements, victims, eval outcomes, chain
+                verdicts, plans, deployments, job versions and drain
+                marks.
 
 Then the card's name and power limit (nvidia-smi), one {"kernels": [...]}
 line (K1-K3 also carry `server_launches`, their count in the server
-phase; every kernel `pool_launches`, its count in pool.c2m; K1 and K2
+phase; every kernel `pool_launches`, its count in pool.c2m, and
+`lifecycle_launches`, its count in the lifecycle phase; K1 and K2
 `pool`, each member's first call held and timed), and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is nonzero and no
 result line is printed. Without a CUDA
@@ -1467,17 +1513,17 @@ SERVER_SPANS = (
 
 
 def start_server(device: str, nodes: list, pipeline: bool = True,
-                 leader: bool = True):
+                 leader: bool = True, **cfg):
     """The port's Server with the GPU batch worker (batches of
-    SERVER_BATCH) and the fleet registered through raft in chunks of
-    1,000 nodes. leader=False enables the broker, the plan queue and the
-    applier but starts no worker, for a caller that drives the batch
-    worker by hand. Returns (server, seconds establish_leadership
-    took)."""
+    SERVER_BATCH; `cfg` goes to its SchedulerConfig) and the fleet
+    registered through raft in chunks of 1,000 nodes. leader=False
+    enables the broker, the plan queue and the applier but starts no
+    worker, for a caller that drives the batch worker by hand. Returns
+    (server, seconds establish_leadership took)."""
     from nomad_tpu_torch.server import Server
 
     srv = Server(use_tpu_batch_worker=True,
-                 scheduler_config=SchedulerConfig(device=device))
+                 scheduler_config=SchedulerConfig(device=device, **cfg))
     srv.tpu_worker.batch_size = SERVER_BATCH
     srv.tpu_worker.pipeline = pipeline
     t0 = time.perf_counter()
@@ -1815,6 +1861,691 @@ def server_lockstep(device: str, nodes: list, jobs: list,
     finally:
         srv.shutdown()
     return {"placed": placed, "verdicts": verdicts}
+
+
+# ---------------------------------------------------------------------------
+# the job lifecycle (nomad_tpu's server/{job_plan,deployment_watcher,
+# drainer,periodic}.py, ported) at c2m's width, through the Server's own
+# endpoints: job plan, canary deployments promoted and rolled, an
+# auto-revert, a node drain, and periodic and dispatched jobs
+# ---------------------------------------------------------------------------
+
+# c2m's jobs with an update stanza (max_parallel 250, canary 10,
+# min_healthy_time 0, healthy_deadline 5m, auto_revert) and a migrate
+# stanza (max_parallel 100); 4 of them rolled, job 5 reverted, a seeded
+# 10% of the nodes drained, 100-alloc periodic and dispatched children
+LIFE = {"jobs": 20, "count": 1000, "canary": 10, "max_parallel": 250,
+        "migrate": 100, "roll": 4, "revert": 5, "drain_ratio": 0.1,
+        "child": 100}
+# the same five steps at 200 nodes, card against CPU twins
+LIFE_SMALL = {"jobs": 20, "count": 50, "canary": 2, "max_parallel": 10,
+              "migrate": 5, "roll": 4, "revert": 5, "drain_ratio": 0.1,
+              "child": 20}
+# Health is reported as an operator reports it: Server.alloc_set_health
+# for deployments (it mints no eval, as in nomad_tpu, so each rolling
+# step after the first is started with Server.job_force_evaluate), and
+# Server.update_allocs_from_client (client status running) for a drain's
+# replacements. No client runs: no wall below is a client's.
+LIFE_HEALTH = ("alloc_set_health (deployments), job_force_evaluate (each "
+               "rolling step after the promote), update_allocs_from_client "
+               "running (drain replacements); no client")
+
+
+def lifecycle_job(structs, make, job_id: str, count: int, cfg: dict):
+    """make(job_id, count) with the lifecycle's update and migrate
+    stanzas."""
+    job = make(job_id, count)
+    update = structs.UpdateStrategy(
+        max_parallel=cfg["max_parallel"], canary=cfg["canary"],
+        min_healthy_time_s=0.0, healthy_deadline_s=300.0, auto_revert=True,
+    )
+    job.update = update
+    job.task_groups[0].update = update.copy()
+    job.task_groups[0].migrate = structs.MigrateStrategy(
+        max_parallel=cfg["migrate"])
+    return job
+
+
+def bumped(job, tag: str):
+    """The job with a new task env: a destructive update."""
+    job = job.copy()
+    job.task_groups[0].tasks[0].env = {"FOO": "bar", "VERSION": tag}
+    return job
+
+
+def child_jobs(structs, make, count: int) -> tuple:
+    """A periodic batch job (*/5, prohibit_overlap) and a parameterized
+    batch job, each of `count` allocs."""
+    per = make("life-periodic", count)
+    per.type = "batch"
+    per.periodic = structs.PeriodicConfig(
+        enabled=True, spec="*/5 * * * *", prohibit_overlap=True)
+    par = make("life-dispatch", count)
+    par.type = "batch"
+    par.parameterized = structs.ParameterizedJobConfig(
+        payload="forbidden", meta_optional=["run"])
+    return per, par
+
+
+def latest_dep(state, job):
+    return state.latest_deployment_by_job(job.namespace, job.id)
+
+
+def mark_healthy(srv, job) -> int:
+    """alloc_set_health for every live alloc of the job's active
+    deployment not yet healthy. Returns how many were marked."""
+    d = latest_dep(srv.state, job)
+    if d is None or not d.active():
+        return 0
+    ids = [a.id for a in live_allocs(srv, job)
+           if a.deployment_id == d.id
+           and not (a.deployment_status is not None
+                    and a.deployment_status.is_healthy())]
+    if ids:
+        srv.alloc_set_health(d.id, ids, [])
+    return len(ids)
+
+
+def report_running(srv, jobs) -> int:
+    """update_allocs_from_client(running) for every live alloc of the
+    jobs that no client or deployment reported yet (a drain's
+    replacements). Returns how many."""
+    ups = []
+    for job in jobs:
+        for a in live_allocs(srv, job):
+            if a.client_status == "pending" and a.deployment_status is None:
+                c = a.copy()
+                c.client_status = "running"
+                ups.append(c)
+    if ups:
+        srv.update_allocs_from_client(ups)
+    return len(ups)
+
+
+def migrating(state, node_ids) -> dict:
+    """{alloc id: job id} of the live allocs on the nodes that the
+    drainer marked for migration."""
+    return {a.id: a.job_id for nid in node_ids
+            for a in state.allocs_by_node(nid)
+            if not a.terminal_status()
+            and a.desired_transition.should_migrate()}
+
+
+def drain_pass(srv, drained) -> dict:
+    """One NodeDrainer pass, timed, with its marks per job."""
+    before = migrating(srv.state, drained)
+    t0 = time.perf_counter()
+    n = srv.drainer.run_once()
+    ms = 1e3 * (time.perf_counter() - t0)
+    per_job: dict = {}
+    for aid, jid in migrating(srv.state, drained).items():
+        if aid not in before:
+            per_job[jid] = per_job.get(jid, 0) + 1
+    return {"marks": n, "ms": ms, "per_job": per_job}
+
+
+def plan_view(resp) -> dict:
+    return {"annotations": resp["Annotations"], "changes": resp["Changes"],
+            "diff": resp["Diff"], "failed": sorted(resp["FailedTGAllocs"])}
+
+
+def child_key(job_id: str) -> str:
+    """A periodic or dispatched child's id without its launch time."""
+    for sep in ("/periodic-", "/dispatch-"):
+        if sep in job_id:
+            return job_id.split(sep, 1)[0] + sep + "*"
+    return job_id
+
+
+def lifecycle_outcome(srv, drained) -> dict:
+    """What two runs of the lifecycle are compared on: live placements
+    by (job, alloc name, node), deployments by (job, version, status,
+    description), each job's version and stability, and the drained
+    nodes' drain strategy and eligibility. Children are keyed without
+    their launch time."""
+    state = srv.state
+    placed = sorted(
+        (child_key(a.job_id), child_key(a.name), a.node_id)
+        for a in state.allocs() if not a.terminal_status())
+    deps = sorted((d.job_id, d.job_version, d.status, d.status_description)
+                  for d in state.deployments())
+    versions = sorted((child_key(j.id), j.version, j.stable, j.parent_id)
+                      for j in state.jobs())
+    nodes = sorted((nid, state.node_by_id(nid).drain_strategy is None,
+                    state.node_by_id(nid).scheduling_eligibility)
+                   for nid in drained)
+    return {"placed": placed, "deployments": deps, "versions": versions,
+            "drained_nodes": nodes}
+
+
+def check_lifecycle(srv, jobs, drained, cfg: dict, children) -> None:
+    """The checks every lifecycle run ends with: no live alloc on a
+    drained node, each drained node's strategy cleared and the node
+    ineligible, every group back at its count, no node over capacity,
+    every eval complete, each child registered with its parent and
+    placed."""
+    state = srv.state
+    left = [a.id for nid in drained for a in state.allocs_by_node(nid)
+            if not a.terminal_status()]
+    check(not left, f"{len(left)} live allocs left on drained nodes")
+    for nid in drained:
+        n = state.node_by_id(nid)
+        check(n.drain_strategy is None and not n.drain,
+              f"drained node {nid} still has its strategy")
+        check(n.scheduling_eligibility == "ineligible",
+              f"drained node {nid} is {n.scheduling_eligibility}")
+    for job in jobs:
+        live = live_allocs(srv, job)
+        check(len(live) == cfg["count"],
+              f"{job.id}: {len(live)} live allocs, want {cfg['count']}")
+    check_server_state(srv, len(jobs) * cfg["count"]
+                       + len(children) * cfg["child"])
+    for parent, cid in children:
+        child = state.job_by_id(parent.namespace, cid)
+        check(child is not None and child.parent_id == parent.id,
+              f"child {cid} not registered under {parent.id}")
+        n = len(live_allocs(srv, child))
+        check(n == cfg["child"], f"child {cid}: {n} allocs placed")
+
+
+# -- the lifecycle driven by hand: deterministic, for card against CPU and
+# -- for nomad_tpu against the port (tests/test_torch_lifecycle.py)
+
+def lockstep_lead(srv) -> None:
+    """Enable the leader's broker, plan queue, blocked evals and plan
+    applier without a worker or watcher thread: drive_batches runs the
+    batch worker, and the watchers' run_once is called by hand. A nacked
+    eval redelivers at once."""
+    srv.eval_broker.nack_delay_s = 0.0
+    srv.eval_broker.set_enabled(True)
+    srv.plan_queue.set_enabled(True)
+    srv.blocked_evals.set_enabled(True)
+    srv.plan_applier.start()
+    srv._leader = True  # the FSM side channels enqueue evals
+
+
+def wait_until(cond, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        check(time.perf_counter() < deadline,
+              f"{what}: not after {timeout_s} s")
+        time.sleep(0.02)
+
+
+def nacks_due(broker) -> bool:
+    """Whether a nacked eval waits in the broker's delay heap for its
+    requeue (the broker's delay thread moves one at most 0.2 s after
+    it is due)."""
+    with broker._lock:
+        return bool(broker._delayed) and \
+            broker._delayed[0][0] <= time.time_ns()
+
+
+def drive_batches(srv) -> list:
+    """The batch worker driven by hand until the broker holds nothing:
+    each round dequeues up to two batches, solves the second while the
+    first's commit is pending (it chains on the first's used'), then
+    commits both in FIFO order. A round starts only once every nacked
+    eval is back in the ready queue, so each round dequeues the same
+    evals in the same order on every run. Returns each batch's (evals,
+    chained, chain accepted, verdict)."""
+    w, broker = srv.tpu_worker, srv.eval_broker
+    verdicts = []
+    while True:
+        wait_until(lambda: not nacks_due(broker), "a nacked eval's requeue",
+                   timeout_s=10.0)
+        solved = []
+        for _ in range(2):
+            got = []
+            while len(got) < SERVER_BATCH:
+                ev, tok = broker.dequeue(w.schedulers, timeout_s=0.05)
+                if ev is None:
+                    break
+                got.append((ev, tok))
+            if not got:
+                break
+            pending, snap, chained_on = w._solve_batch([e for e, _ in got])
+            committed, outcome = threading.Event(), {"ok": None}
+            w._prev = (pending, committed, outcome,
+                       chained_on[1] if chained_on else snap.index)
+            solved.append((got, pending, snap, committed, outcome,
+                           chained_on))
+        for got, pending, snap, committed, outcome, chained_on in solved:
+            w._commit(got, pending, snap, committed, outcome, chained_on)
+            verdicts.append((len(got), chained_on is not None,
+                             pending.chain_accepted, outcome["ok"]))
+        if not solved and broker.pending_count() == 0 \
+                and broker.inflight_count() == 0 and not broker._delayed:
+            return verdicts
+
+
+def lifecycle_lockstep(srv, structs, make, nodes, drained,
+                       cfg: dict) -> dict:
+    """The lifecycle's five steps at one seed with every eval solved by
+    drive_batches and every watcher pass called by hand, on a Server the
+    caller built with the GPU batch worker (nomad_tpu's Server in the
+    tests: `structs` and `make` come from the server's own package).
+    Returns lifecycle_outcome plus the plans, the drain passes' marks and
+    the batch verdicts."""
+    lockstep_lead(srv)
+    srv.raft_apply("node_register_batch", [n.copy() for n in nodes])
+    state = srv.state
+    jobs = [lifecycle_job(structs, make, f"life-{j}", cfg["count"], cfg)
+            for j in range(cfg["jobs"])]
+    verdicts = []
+    for job in jobs:
+        srv.job_register(job)
+    verdicts += drive_batches(srv)
+    for job in jobs:
+        mark_healthy(srv, job)
+    srv.deployment_watcher.run_once()
+    out = {}
+    # 1. job plan: a new job, and job 0 with a new task env
+    before = state.latest_index()
+    new = lifecycle_job(structs, make, "life-new", cfg["count"], cfg)
+    roll0 = bumped(state.job_by_id(jobs[0].namespace, jobs[0].id), "2")
+    out["plans"] = [plan_view(srv.job_plan(new)),
+                    plan_view(srv.job_plan(roll0))]
+    check(state.latest_index() == before, "job_plan wrote to the store")
+    # 2. canary rollouts: promoted, then rolled to success
+    rolled = jobs[1:1 + cfg["roll"]]
+    for job in rolled:
+        srv.job_register(bumped(state.job_by_id(job.namespace, job.id), "2"))
+    verdicts += drive_batches(srv)
+    for job in rolled:
+        mark_healthy(srv, job)
+        srv.deployment_promote(latest_dep(state, job).id)
+    verdicts += drive_batches(srv)
+    rounds = 0
+    while True:
+        for job in rolled:
+            mark_healthy(srv, job)
+        srv.deployment_watcher.run_once()
+        todo = [j for j in rolled
+                if latest_dep(state, j).status != "successful"]
+        if not todo:
+            break
+        rounds += 1
+        check(rounds <= 4 * cfg["count"] // cfg["max_parallel"] + 4,
+              f"rollout not done after {rounds} rounds")
+        for job in todo:
+            srv.job_force_evaluate(job.namespace, job.id)
+        verdicts += drive_batches(srv)
+    out["deploy_rounds"] = rounds
+    # 3. auto-revert: the canaries reported unhealthy
+    rj = jobs[cfg["revert"]]
+    srv.job_register(bumped(state.job_by_id(rj.namespace, rj.id), "bad"))
+    verdicts += drive_batches(srv)
+    d = latest_dep(state, rj)
+    srv.alloc_set_health(d.id, [], [a.id for a in live_allocs(srv, rj)
+                                    if a.deployment_id == d.id])
+    srv.deployment_watcher.run_once()
+    verdicts += drive_batches(srv)
+    # 4. node drain: two rate-limited passes, then the deadline forced
+    for nid in drained:
+        srv.node_update_drain(nid, structs.DrainStrategy(deadline_s=3600))
+    verdicts += drive_batches(srv)
+    passes = []
+    for _ in range(2):
+        passes.append(drain_pass(srv, drained))
+        check(max(passes[-1]["per_job"].values(), default=0)
+              <= cfg["migrate"], f"a drainer pass marked {passes[-1]}")
+        verdicts += drive_batches(srv)
+        report_running(srv, jobs)
+    for nid in drained:
+        srv.node_update_drain(nid, structs.DrainStrategy(deadline_s=-1))
+    passes.append(drain_pass(srv, drained))
+    verdicts += drive_batches(srv)
+    report_running(srv, jobs)
+    passes.append(drain_pass(srv, drained))
+    # 5. a forced periodic launch and a dispatch
+    per, par = child_jobs(structs, make, cfg["child"])
+    srv.job_register(per)
+    srv.job_register(par)
+    children = [(per, srv.periodic.force_launch(per.namespace, per.id)),
+                (par, srv.job_dispatch(par.namespace, par.id,
+                                       meta={"run": "1"})[0])]
+    verdicts += drive_batches(srv)
+    check_lifecycle(srv, jobs, drained, cfg, children)
+    out.update(lifecycle_outcome(srv, drained))
+    out["drain_passes"] = [sorted(p["per_job"].items()) for p in passes]
+    out["verdicts"] = verdicts
+    return out
+
+
+# -- the lifecycle at c2m's width on a running Server (worker, watcher,
+# -- drainer and periodic threads)
+
+def wait_settled(srv, timeout_s: float = 600.0) -> None:
+    """Until the broker, the worker and the plan queue hold nothing and
+    no eval in the store is pending (a nacked eval waits out the
+    broker's nack delay in between)."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        check(srv.wait_for_evals(max(0.0, deadline - time.perf_counter())),
+              f"evals still in flight after {timeout_s} s")
+        if srv.eval_broker.pending_count() == 0 and not any(
+                e.status == "pending" for e in srv.state.evals()):
+            return
+        check(time.perf_counter() < deadline,
+              f"evals pending after {timeout_s} s")
+        time.sleep(0.05)
+
+
+def timed_passes(watcher) -> list:
+    """Wrap a watcher's run_once so each pass (its poll thread's too)
+    records its milliseconds in the returned list."""
+    passes = []
+    real = watcher.run_once
+
+    def run_once(*args):
+        t0 = time.perf_counter()
+        try:
+            return real(*args)
+        finally:
+            passes.append(1e3 * (time.perf_counter() - t0))
+
+    watcher.run_once = run_once
+    return passes
+
+
+def pass_stats(ms: list) -> dict:
+    return {"passes": len(ms),
+            "median_ms": statistics.median(ms) if ms else None,
+            "max_ms": max(ms) if ms else None}
+
+
+def lifecycle_scenario(device: str, n_nodes: int, seed: int,
+                       on_step) -> dict:
+    """The lifecycle's five steps at c2m's width through the Server's
+    endpoints, on a Server with the pipelined GPU batch worker (batches
+    of SERVER_BATCH, small_batch_threshold 0 so that every solve, the
+    10-canary ones included, runs on the card, as tests/test_canary.py
+    runs nomad_tpu's) and the deployment watcher, node drainer and
+    periodic dispatcher on their own threads. Setup (the fleet, the jobs
+    and their first deployments driven to successful) runs before the
+    launch counters are zeroed; they are read after step 5. The drain
+    step stops the drainer's thread and runs its passes by hand, timed.
+    Returns the server (still running), the launch counts and each
+    step's numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.metrics import Registry
+    from nomad_tpu_torch.structs import structs as S
+
+    metrics._install_registry(Registry())
+    srv, lead_s = start_server(device, c2m_nodes(n_nodes),
+                               small_batch_threshold=0)
+    state = srv.state
+    cfg = LIFE
+    tg_name = "web"
+    watcher_ms = timed_passes(srv.deployment_watcher)
+    t0 = time.perf_counter()
+    jobs = [lifecycle_job(S, make_job, f"life-{j}", cfg["count"], cfg)
+            for j in range(cfg["jobs"])]
+    register_and_wait(srv, jobs)
+    for job in jobs:
+        mark_healthy(srv, job)
+    wait_until(lambda: all(
+        latest_dep(state, j).status == "successful"
+        and state.job_by_id(j.namespace, j.id).stable for j in jobs),
+        "the first deployments successful and stable")
+    on_step("lifecycle.setup", time.perf_counter() - t0,
+            establish_leadership_s=lead_s,
+            allocs=cfg["jobs"] * cfg["count"])
+    tk.reset_launch_counts()
+    m0 = metrics.snapshot()
+    steps: dict = {}
+
+    def step(name: str, fn) -> None:
+        trace.clear_finished()
+        n_evals = len(state.evals())
+        w0 = len(watcher_ms)
+        t = time.perf_counter()
+        extra = fn()
+        wall = time.perf_counter() - t
+        traces = batch_traces()
+        nums = {"wall_s": wall, "evals": len(state.evals()) - n_evals,
+                "batches": len(traces),
+                "compact_batches": sum(
+                    1 for tr in traces
+                    if any(sp.name == "device.wait" for sp in tr.spans)),
+                "watcher": pass_stats(watcher_ms[w0:]),
+                "spans_ms": span_sums_ms(traces), **extra}
+        steps[name] = nums
+        on_step(f"lifecycle.{name}", wall, **nums)
+
+    def do_plan() -> dict:
+        before = (state.latest_index(), len(state.allocs()),
+                  len(state.deployments()), len(state.jobs()))
+        new = lifecycle_job(S, make_job, "life-new", cfg["count"], cfg)
+        roll0 = bumped(state.job_by_id(jobs[0].namespace, jobs[0].id), "2")
+        ms, k1, ann = [], [], []
+        for cand in (new, roll0):
+            k0 = tk.solve_placement_compact.launches
+            t = time.perf_counter()
+            resp = srv.job_plan(cand)
+            ms.append(1e3 * (time.perf_counter() - t))
+            k1.append(tk.solve_placement_compact.launches - k0)
+            check(resp["Changes"] is True, f"plan of {cand.id}: no changes")
+            ann.append(resp["Annotations"]["DesiredTGUpdates"][tg_name])
+        check(ann[0]["place"] == cfg["count"],
+              f"the new job's plan places {ann[0]['place']}")
+        check(ann[1]["canary"] == cfg["canary"]
+              and ann[1]["destructive"] == 0,
+              f"job 0's plan: {ann[1]}")
+        after = (state.latest_index(), len(state.allocs()),
+                 len(state.deployments()), len(state.jobs()))
+        check(after == before, f"job_plan moved the store: {before} -> "
+              f"{after}")
+        # (a launch is counted on the card alone: the CPU twins count none)
+        check(device != "cuda" or all(k >= 1 for k in k1),
+              f"K1 launches per plan: {k1}")
+        return {"plan_ms": ms, "k1_per_plan": k1, "annotations": ann}
+
+    def do_deploy() -> dict:
+        rolled = jobs[1:1 + cfg["roll"]]
+        for job in rolled:
+            srv.job_register(
+                bumped(state.job_by_id(job.namespace, job.id), "2"))
+        wait_settled(srv)
+        for job in rolled:
+            d = latest_dep(state, job)
+            n = sum(1 for a in live_allocs(srv, job) if a.deployment_id == d.id)
+            check(n == cfg["canary"], f"{job.id}: {n} canaries placed")
+            check(mark_healthy(srv, job) == cfg["canary"],
+                  f"{job.id}: canaries to mark healthy")
+            srv.deployment_promote(d.id)
+        wait_settled(srv)
+        rounds = 0
+        while True:
+            for job in rolled:
+                mark_healthy(srv, job)
+            todo = []
+            for job in rolled:
+                v = state.job_by_id(job.namespace, job.id).version
+                new_live = [a for a in live_allocs(srv, job)
+                            if a.job.version == v]
+                if len(new_live) < cfg["count"]:
+                    todo.append(job)
+            if not todo:
+                break
+            rounds += 1
+            check(rounds <= 2 * cfg["count"] // cfg["max_parallel"] + 2,
+                  f"rollout not done after {rounds} rounds")
+            for job in todo:
+                srv.job_force_evaluate(job.namespace, job.id)
+            wait_settled(srv)
+        wait_until(lambda: all(
+            latest_dep(state, j).status == "successful"
+            and state.job_by_id(j.namespace, j.id).stable for j in rolled),
+            "the rollouts successful and stable")
+        for job in rolled:
+            stored = state.job_by_id(job.namespace, job.id)
+            live = live_allocs(srv, job)
+            check(len(live) == cfg["count"]
+                  and all(a.job.version == stored.version for a in live),
+                  f"{job.id}: not all {cfg['count']} allocs on version "
+                  f"{stored.version}")
+        return {"rounds": rounds, "jobs": len(rolled),
+                "allocs_rolled": len(rolled) * cfg["count"]}
+
+    def do_revert() -> dict:
+        rj = jobs[cfg["revert"]]
+        stable = state.job_by_id(rj.namespace, rj.id)
+        srv.job_register(bumped(stable, "bad"))
+        wait_settled(srv)
+        bad_v = state.job_by_id(rj.namespace, rj.id).version
+        d = latest_dep(state, rj)
+        canaries = [a.id for a in live_allocs(srv, rj)
+                    if a.deployment_id == d.id]
+        check(len(canaries) == cfg["canary"],
+              f"revert: {len(canaries)} canaries placed")
+        srv.alloc_set_health(d.id, [], canaries)
+        wait_until(lambda: state.deployment_by_id(d.id).status == "failed"
+                   and state.job_by_id(rj.namespace, rj.id).version > bad_v,
+                   "the watcher's fail and auto-revert")
+        wait_settled(srv)
+        reverted = state.job_by_id(rj.namespace, rj.id)
+        check(not reverted.specification_changed(stable),
+              "the reverted job's spec is not the stable one's")
+        check(all(state.alloc_by_id(c).terminal_status() for c in canaries),
+              "a canary of the failed deployment is still live")
+        env = stable.task_groups[0].tasks[0].env
+        live = live_allocs(srv, rj)
+        check(len(live) == cfg["count"]
+              and all(a.job.task_groups[0].tasks[0].env == env
+                      for a in live),
+              f"revert: {len(live)} live allocs, not all on the stable spec")
+        # The revert's own deployment (nomad_tpu's behaviour, which the
+        # port follows): its allocs are updated in place and keep their
+        # old deployment id, so it stays running with nothing placed.
+        d2 = latest_dep(state, rj)
+        return {"description": state.deployment_by_id(d.id)
+                .status_description,
+                "versions": [stable.version, bad_v, reverted.version],
+                "revert_deployment": [d2.status,
+                                      d2.task_groups[tg_name].placed_allocs]}
+
+    drained = random.Random(seed).sample(
+        sorted(n.id for n in state.nodes()),
+        int(n_nodes * cfg["drain_ratio"]))
+
+    def do_drain() -> dict:
+        srv.drainer.stop()  # its passes run by hand below, timed
+        t = time.perf_counter()
+        for nid in drained:
+            srv.node_update_drain(nid, S.DrainStrategy(deadline_s=3600))
+        mark_s = time.perf_counter() - t
+        wait_settled(srv)
+        passes = []
+        running = []
+        for _ in range(2):
+            p = drain_pass(srv, drained)
+            check(max(p["per_job"].values(), default=0) <= cfg["migrate"],
+                  f"a drainer pass marked {p['per_job']}")
+            passes.append(p)
+            wait_settled(srv)
+            running.append(report_running(srv, jobs))
+        for nid in drained:
+            srv.node_update_drain(nid, S.DrainStrategy(deadline_s=-1))
+        wait_settled(srv)
+        passes.append(drain_pass(srv, drained))
+        wait_settled(srv)
+        running.append(report_running(srv, jobs))
+        passes.append(drain_pass(srv, drained))
+        srv.drainer.start()
+        return {"drained": len(drained), "drain_calls_s": mark_s,
+                "marks": [p["marks"] for p in passes],
+                "max_per_group": [max(p["per_job"].values(), default=0)
+                                  for p in passes],
+                "pass_ms": [p["ms"] for p in passes],
+                "reported_running": running}
+
+    children = []
+
+    def do_periodic() -> dict:
+        per, par = child_jobs(S, make_job, cfg["child"])
+        srv.job_register(per)
+        srv.job_register(par)
+        children.append(
+            (per, srv.periodic.force_launch(per.namespace, per.id)))
+        children.append((par, srv.job_dispatch(
+            par.namespace, par.id, meta={"run": "1"})[0]))
+        wait_settled(srv)
+        return {"children": [c for _, c in children]}
+
+    for name, fn in (("plan", do_plan), ("deploy", do_deploy),
+                     ("revert", do_revert), ("drain", do_drain),
+                     ("periodic", do_periodic)):
+        step(name, fn)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {
+        "solve_placement_compact": tk.solve_placement_compact.launches,
+        "scatter_rows": tk.scatter_rows.launches,
+        "scatter_rows_copy": tk.scatter_rows.launches_copy,
+        "scatter_add_rows": tk.scatter_add_rows.launches,
+    }
+    check_lifecycle(srv, jobs, drained, cfg, children)
+    m1 = metrics.snapshot()
+    whole = wave_numbers(m0, m1, [], 1.0, 0, 0)
+    return {"srv": srv, "launches": launches, "steps": steps,
+            "counters": m1["counters"],
+            "compact_batches": sum(s["compact_batches"]
+                                   for s in steps.values()),
+            "chained_batches": whole["chained_batches"],
+            "partial_commits": whole["partial_commits"],
+            "watcher": pass_stats(watcher_ms)}
+
+
+def check_lifecycle_run(res) -> None:
+    """No device failover or failed batch, the worker's resident tensors
+    on cuda:0, K1 once per compact batch (and once per plan), K2 not
+    donated at least once."""
+    srv, c = res["srv"], res["counters"]
+    w = srv.tpu_worker
+    check(c.get("nomad.worker.device_failover", 0) == 0,
+          "lifecycle: a device failover")
+    check(c.get("nomad.worker.invoke.failed", 0) == 0,
+          "lifecycle: a batch failed to solve or commit")
+    cuda0 = torch.device("cuda", 0)
+    r = w._resident
+    check(r is not None and r._cap_dev.device == cuda0
+          and r._used_dev.device == cuda0,
+          "lifecycle: the worker's resident tensors are not on cuda:0")
+    k1 = res["launches"]["solve_placement_compact"]
+    want = res["compact_batches"] + len(res["steps"]["plan"]["plan_ms"])
+    check(res["compact_batches"] > 0 and k1 >= want,
+          f"lifecycle: K1 ran {k1} times for {want} compact solves")
+    check(res["launches"]["scatter_rows_copy"] >= 1,
+          "lifecycle: K2's non-donated mode was not launched")
+
+
+def lifecycle_recorders() -> dict:
+    """Recorders for the lifecycle phase's first K1 call and its first
+    non-donated K2 call."""
+    return {
+        "solve_placement_compact": Recorder(solver_mod,
+                                            "solve_placement_compact"),
+        "scatter_rows_copy": Recorder(solver_mod, "scatter_rows",
+                                      keep=lambda a: a[3] is False),
+    }
+
+
+def lifecycle_small(device: str, nodes: list, drained: list) -> dict:
+    """LIFE_SMALL's lifecycle driven by hand (lifecycle_lockstep) on a
+    fresh Server with the GPU batch worker on `device`."""
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.structs import structs as S
+
+    srv = Server(use_tpu_batch_worker=True, scheduler_config=SchedulerConfig(
+        device=device, small_batch_threshold=0))
+    srv.tpu_worker.batch_size = SERVER_BATCH
+    try:
+        return lifecycle_lockstep(srv, S, make_job, nodes, drained,
+                                  LIFE_SMALL)
+    finally:
+        srv.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -3074,7 +3805,42 @@ def main() -> int:
     phase("pool.scaling", t0, **pool_scaling("cuda"))
     phase("pool", t_pool, launches=pool_launches)
 
-    # 8. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 8. the job lifecycle at c2m's width through the Server's endpoints:
+    #    two plans, four canary rollouts promoted and rolled, an
+    #    auto-revert, a 10% drain, a periodic and a dispatched child;
+    #    launch counters zeroed just before the first plan and read after
+    #    the children are placed
+    t_life = time.perf_counter()
+    lrec = lifecycle_recorders()
+    trace.set_enabled(True)
+    try:
+        lres = lifecycle_scenario("cuda", 10000, args.seed, on_server)
+    finally:
+        trace.set_enabled(False)
+        for r in reversed(list(lrec.values())):
+            r.restore()
+    life_launches = lres["launches"]
+    try:
+        check(all(t.is_cuda for r in lrec.values() for t in r.tensors),
+              "a tensor of the lifecycle path is on the host")
+        check_lifecycle_run(lres)
+        check(lrec["scatter_rows_copy"].first is not None,
+              "no lifecycle non-donated K2 call recorded")
+        used_c, idx_c = lrec["scatter_rows_copy"].first[0][:2]
+        phase("lifecycle", t_life, launches=life_launches,
+              health=LIFE_HEALTH, compact_batches=lres["compact_batches"],
+              chained_batches=lres["chained_batches"],
+              partial_commits=lres["partial_commits"],
+              watcher=lres["watcher"],
+              k2_copy_first={"np": used_c.shape[0], "rows": idx_c.shape[0],
+                             "kept": int(((idx_c >= 0)
+                                          & (idx_c < used_c.shape[0]))
+                                         .sum())})
+    finally:
+        lres["srv"].shutdown()
+    del lres
+
+    # 9. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -3087,7 +3853,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 9. replay each path's calls against the twins, and time them
+    # 10. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -3106,11 +3872,23 @@ def main() -> int:
             k["pool"] = pool_held[k["name"]]
     kernels[[k["name"] for k in kernels].index("scatter_rows")][
         "pool_copy"] = pool_held["scatter_rows_copy"]
+    life_held = replay_server(lrec, life_launches)
+    for k in kernels:
+        k["lifecycle_launches"] = life_launches.get(k["name"], 0)
+    names = [k["name"] for k in kernels]
+    kernels[names.index("solve_placement_compact")]["lifecycle"] = \
+        life_held["solve_placement_compact"]
+    kernels[names.index("scatter_rows")]["lifecycle_copy"] = \
+        life_held["scatter_rows_copy"]
+    kernels[names.index("scatter_rows")]["lifecycle_launches_copy"] = \
+        life_launches["scatter_rows_copy"]
     phase("replay", t0)
 
-    # 10. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
-    #    bench.py's preempt config and its drain config, and its pipeline
-    #    config through the batch worker driven by hand: card == CPU twins
+    # 11. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    #    bench.py's preempt config and its drain config, its pipeline
+    #    config through the batch worker driven by hand, and the
+    #    lifecycle's five steps at 200 nodes driven by hand: card == CPU
+    #    twins
     t0 = time.perf_counter()
     small_gpu = three_waves("cuda", 200, 8, 200, 2)
     small_cpu = three_waves("cpu", 200, 8, 200, 2)
@@ -3165,6 +3943,19 @@ def main() -> int:
           "pipeline config: the chain verdicts differ")
     check(any(c and a for c, a, _ in lock_gpu["verdicts"]),
           "pipeline config: no batch chained")
+    # the lifecycle at LIFE_SMALL: 200 nodes, 20 jobs of 50 (canary 2,
+    # max_parallel 10, migrate 5), a seeded 10% drained
+    life_nodes = c2m_nodes(200)
+    life_drained = random.Random(args.seed).sample(
+        sorted(n.id for n in life_nodes),
+        int(200 * LIFE_SMALL["drain_ratio"]))
+    life_gpu = lifecycle_small("cuda", life_nodes, life_drained)
+    life_cpu = lifecycle_small("cpu", life_nodes, life_drained)
+    for key in life_gpu:
+        check(life_gpu[key] == life_cpu[key],
+              f"lifecycle: card and CPU twins differ in {key}")
+    check(any(c and a for _, c, a, _ in life_gpu["verdicts"]),
+          "lifecycle: no batch chained")
     phase("small", t0, allocs_compared=len(small_gpu["placed"]),
           mesh_allocs_compared=len(mesh_gpu["placed"]),
           preempt_placed=len(pre_gpu["placed"]),
@@ -3173,7 +3964,12 @@ def main() -> int:
           drain_evals=len(dg["evals"]),
           drain_k2_copy_launches=bench_drain_copies,
           pipeline_allocs_compared=len(lock_gpu["placed"]),
-          pipeline_verdicts=lock_gpu["verdicts"])
+          pipeline_verdicts=lock_gpu["verdicts"],
+          lifecycle_allocs_compared=len(life_gpu["placed"]),
+          lifecycle_deployments=len(life_gpu["deployments"]),
+          lifecycle_drain_passes=[sum(n for _, n in p)
+                                  for p in life_gpu["drain_passes"]],
+          lifecycle_batches=len(life_gpu["verdicts"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

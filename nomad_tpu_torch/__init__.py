@@ -7,7 +7,10 @@ counterpart is found at the same path:
   structs/        shared vocabulary (Job, Node, Allocation, Evaluation, Plan)
   state/          in-memory state store with the per-node usage aggregate
   scheduler/      reconcile, feasibility, and the batch solver (scheduler/gpu)
-  server/         the scheduling pipeline, gossip membership, the solver pool
+  server/         the scheduling pipeline, the job lifecycle (plan, the
+                  deployment watcher, the node drainer, periodic jobs),
+                  gossip membership, the solver pool
+  connect/        the Connect admission hook and its sidecar relay
   rpc/            the TCP fabric the pool and membership speak over
   mock/ testing/  factories and the in-memory scheduling harness
   csrc/           the hand-written CUDA kernels the solver launches

@@ -1,5 +1,6 @@
 from .factories import (
     alloc,
+    batch_job,
     eval_for_job,
     evaluation,
     job,

@@ -31,6 +31,7 @@ from ..structs import (
 from ..structs.structs import (
     EVAL_TRIGGER_JOB_REGISTER,
     EVAL_STATUS_PENDING,
+    JOB_TYPE_BATCH,
     JOB_TYPE_SERVICE,
     JOB_TYPE_SYSBATCH,
     JOB_TYPE_SYSTEM,
@@ -129,6 +130,23 @@ def job(**overrides) -> Job:
     )
     for k, v in overrides.items():
         setattr(j, k, v)
+    j.canonicalize()
+    return j
+
+
+def batch_job(**overrides) -> Job:
+    j = job(**overrides)
+    if "type" not in overrides:
+        j.type = JOB_TYPE_BATCH
+    if "id" not in overrides:
+        j.id = f"mock-batch-{generate_uuid()[:8]}"
+    j.update = None
+    for tg in j.task_groups:
+        tg.update = None
+        tg.reschedule_policy = None
+        tg.count = 1
+        for t in tg.tasks:
+            t.resources.networks = []
     j.canonicalize()
     return j
 

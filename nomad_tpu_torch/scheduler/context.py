@@ -40,6 +40,7 @@ class SchedulerConfig:
         mesh_devices: Optional[int] = None,
         micro_solve_threshold: Optional[int] = None,
         device: str = "cuda",
+        memory_oversubscription: bool = False,
     ) -> None:
         import os
 
@@ -80,6 +81,10 @@ class SchedulerConfig:
         if backend not in ("gpu", "host"):
             raise ValueError(f"unknown scheduler backend {backend!r}")
         self.backend = backend
+        # Whether a task's memory_max_mb survives job admission (the
+        # server's register and plan strip it otherwise: Server.
+        # apply_memory_oversubscription_gate).
+        self.memory_oversubscription = memory_oversubscription
         # Batches asking for fewer total placements than this skip the
         # tensor solve: the device round-trip dominates tiny solves, so
         # they run the host iterator stack instead (reference per-eval

@@ -6,13 +6,18 @@ Evals flow ``Server.job_register`` → FSM → :class:`EvalBroker` → a
 :class:`PlanQueue` → :class:`PlanApplier` (verification, then the raft
 apply) → the state store. Host code: nothing here imports torch; the
 batch worker reaches the card through ``scheduler.gpu`` at its first
-solve.
+solve. The job lifecycle's leader subsystems (:class:`DeploymentsWatcher`,
+:class:`NodeDrainer`, :class:`PeriodicDispatch`) and ``job_plan`` are host
+code too.
 """
 
 from .blocked_evals import BlockedEvals
 from .core_sched import CoreScheduler, core_eval
+from .deployment_watcher import DeploymentsWatcher
+from .drainer import NodeDrainer
 from .eval_broker import EvalBroker
 from .heartbeat import HeartbeatWheel, rate_scaled_interval
+from .periodic import CronSpec, PeriodicDispatch, next_launch
 from .plan_apply import PlanApplier, evaluate_node_plan, evaluate_plan
 from .plan_queue import PlanQueue
 from .raft import FSM, InmemLog

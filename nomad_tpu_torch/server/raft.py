@@ -1,10 +1,13 @@
 """Replicated log + FSM layer.
 
 Port of ``nomad_tpu/server/raft.py`` (reference: nomad/fsm.go +
-hashicorp/raft), cut to the apply types the scheduling pipeline writes:
-node, job, eval, alloc, plan-result and deployment entries. ACL,
-namespace, volume, service, secret, scaling and snapshot-restore entries
-stay with the reference until their modules are ported. `InmemLog` is a
+hashicorp/raft), cut to the apply types the scheduling pipeline and the
+job lifecycle write: node (with drain and eligibility), job, eval, alloc
+(with desired transitions), plan-result, deployment (upsert, status,
+promotion, alloc health) and summary-reconcile entries. ACL, namespace,
+volume, service, secret, scaling-event, operator-config and
+snapshot-restore entries stay with the reference until their modules are
+ported. `InmemLog` is a
 single-node ordered log whose apply path runs through the same FSM
 dispatch a replicated deployment would use.
 
@@ -21,13 +24,21 @@ from typing import Callable, Optional
 from .. import trace
 from ..gctune import paused_gc
 from ..state import StateStore
-from ..structs import Evaluation, PlanResult
+from ..structs import Allocation, Deployment, Evaluation, PlanResult
 
 
 class NotLeaderError(Exception):
     """A write reached a server that is not (or no longer) the leader.
     The single-node log never raises it; the workers treat it as a
     leadership-churn signal and back off before the next attempt."""
+
+
+class LeadershipLostError(NotLeaderError):
+    """Leadership was lost after the entry was submitted: the write's
+    outcome is unknown — it may still commit under the next leader
+    (reference raft ErrLeadershipLost). The port has no replicated log
+    yet, so nothing raises it; the periodic dispatcher tells it apart
+    from a pre-submit NotLeaderError, as nomad_tpu's does."""
 
 
 class FSM:
@@ -44,6 +55,7 @@ class FSM:
         self.on_eval_update: Optional[Callable] = None
         self.on_node_update: Optional[Callable] = None
         self.on_alloc_client_update: Optional[Callable] = None
+        self.on_job_upsert: Optional[Callable] = None  # periodic tracking
         self._handlers = {
             "noop": lambda index, payload: None,  # leader election barrier
             "node_register": self._apply_node_register,
@@ -54,14 +66,26 @@ class FSM:
             "node_batch_update_status": self._apply_node_status_batch,
             "node_deregister": self._apply_node_deregister,
             "node_update_status": self._apply_node_status,
+            "node_update_drain": self._apply_node_drain,
+            "node_update_eligibility": self._apply_node_eligibility,
             "job_register": self._apply_job_register,
             "job_deregister": self._apply_job_deregister,
             "eval_update": self._apply_eval_update,
             "eval_delete": self._apply_eval_delete,
+            "alloc_update": self._apply_alloc_update,
             "alloc_client_update": self._apply_alloc_client_update,
+            "alloc_update_desired_transition": self._apply_desired_transition,
             "apply_plan_results": self._apply_plan_results,
             "apply_plan_results_batch": self._apply_plan_results_batch,
+            "deployment_upsert": self._apply_deployment_upsert,
+            "deployment_status_update": self._apply_deployment_status,
             "deployment_delete": self._apply_deployment_delete,
+            "deployment_promote": self._apply_deployment_promote,
+            "deployment_alloc_health": self._apply_deployment_alloc_health,
+            "batch_node_drain_update": self._apply_batch_drain,
+            "summaries_reconcile": lambda i, p: (
+                self.state.reconcile_job_summaries(i)
+            ),
         }
 
     def apply(self, index: int, msg_type: str, payload) -> object:
@@ -99,9 +123,24 @@ class FSM:
         if self.on_node_update:
             self.on_node_update(self.state.node_by_id(node_id))
 
+    def _apply_node_drain(self, index: int, payload) -> None:
+        node_id, drain, mark_eligible = payload
+        self.state.update_node_drain(index, node_id, drain, mark_eligible)
+
+    def _apply_node_eligibility(self, index: int, payload) -> None:
+        node_id, eligibility = payload
+        self.state.update_node_eligibility(index, node_id, eligibility)
+        if self.on_node_update:
+            self.on_node_update(self.state.node_by_id(node_id))
+
     def _apply_job_register(self, index: int, payload) -> None:
         job, eval_obj = payload
         self.state.upsert_job(index, job)
+        if self.on_job_upsert:
+            self.on_job_upsert(
+                self.state.job_by_id(job.namespace, job.id),
+                (job.namespace, job.id),
+            )
         if eval_obj is not None:
             self.state.upsert_evals(index, [eval_obj])
             if self.on_eval_update:
@@ -117,6 +156,10 @@ class FSM:
                 stopped = job.copy()
                 stopped.stop = True
                 self.state.upsert_job(index, stopped)
+        if self.on_job_upsert:
+            self.on_job_upsert(
+                self.state.job_by_id(namespace, job_id), (namespace, job_id)
+            )
         if eval_obj is not None:
             self.state.upsert_evals(index, [eval_obj])
             if self.on_eval_update:
@@ -131,10 +174,19 @@ class FSM:
         eval_ids, alloc_ids = payload
         self.state.delete_evals(index, eval_ids, alloc_ids)
 
+    def _apply_alloc_update(self, index: int, allocs: list[Allocation]) -> None:
+        self.state.upsert_allocs(index, allocs)
+
     def _apply_alloc_client_update(self, index: int, allocs) -> None:
         self.state.update_allocs_from_client(index, allocs)
         if self.on_alloc_client_update:
             self.on_alloc_client_update(allocs)
+
+    def _apply_desired_transition(self, index: int, payload) -> None:
+        transitions, evals = payload
+        self.state.update_alloc_desired_transition(index, transitions, evals)
+        if evals and self.on_eval_update:
+            self.on_eval_update(evals)
 
     def _apply_plan_results(self, index: int, result: PlanResult) -> None:
         self.state.upsert_plan_results(index, result)
@@ -153,8 +205,43 @@ class FSM:
         if evs and self.on_eval_update:
             self.on_eval_update(evs)
 
+    def _apply_deployment_upsert(self, index: int, deployment: Deployment) -> None:
+        self.state.upsert_deployment(index, deployment)
+
+    def _apply_deployment_status(self, index: int, update) -> None:
+        self.state.update_deployment_status(index, update)
+
     def _apply_deployment_delete(self, index: int, ids: list[str]) -> None:
         self.state.delete_deployment(index, ids)
+
+    def _apply_deployment_promote(self, index: int, payload) -> None:
+        """(deployment_id, groups|None, eval) — reference fsm.go
+        ApplyDeploymentPromotion."""
+        deployment_id, groups, eval_obj = payload
+        self.state.update_deployment_promotion(index, deployment_id, groups, eval_obj)
+        if eval_obj is not None and self.on_eval_update:
+            self.on_eval_update([eval_obj])
+
+    def _apply_deployment_alloc_health(self, index: int, payload) -> None:
+        """dict payload — reference fsm.go ApplyDeploymentAllocHealth
+        (health set + optional status update + optional job revert, atomic)."""
+        self.state.update_alloc_deployment_health(
+            index,
+            payload["deployment_id"],
+            payload.get("healthy_ids", []),
+            payload.get("unhealthy_ids", []),
+            payload.get("status_update"),
+            payload.get("eval"),
+            payload.get("revert_job"),
+        )
+        ev = payload.get("eval")
+        if ev is not None and self.on_eval_update:
+            self.on_eval_update([ev])
+
+    def _apply_batch_drain(self, index: int, payload) -> None:
+        # {node_id: DrainStrategy|None}
+        for node_id, drain in payload.items():
+            self.state.update_node_drain(index, node_id, drain)
 
 
 class InmemLog:

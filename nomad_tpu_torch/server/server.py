@@ -1,17 +1,25 @@
 """The server: replicated state + leader-only scheduling subsystems.
 
-Port of ``nomad_tpu/server/server.py``, cut to the scheduling pipeline:
-the FSM and its log, the eval broker, blocked evals, the heartbeat
+Port of ``nomad_tpu/server/server.py``, cut to the scheduling pipeline
+and the job lifecycle. The pipeline: the FSM and its log, the eval broker, blocked evals, the heartbeat
 wheel, the plan queue and applier, and the workers, wired as the
 reference wires them (reference: nomad/server.go, nomad/leader.go:224
 establishLeadership, nomad/node_endpoint.go, nomad/job_endpoint.go).
 ``use_tpu_batch_worker=True`` puts the service and batch evals on the
 TPUBatchWorker, which solves them on the card; system, sysbatch and
 ``_core`` evals go to a plain Worker (a ``_core`` eval runs the
-CoreScheduler's GC passes; the port has no timer that enqueues them).
-ACL, secrets, volumes, services, namespaces, job plan/dispatch, the
-periodic, deployment, drain and volume watchers, the watch hub, the
-node-register batcher, the GC timer, the metrics providers and the event
+CoreScheduler's GC passes; the GC timer and ``force_gc`` enqueue them).
+The job lifecycle rides on it: job admission (Connect sidecar injection,
+the memory-oversubscription gate, the cron check, the broker's
+saturation guard), job plan, scale, revert, dispatch and force-evaluate,
+alloc stop, the deployment endpoints with the deployment watcher, node
+drain and eligibility with the node drainer, the periodic dispatcher,
+and the GC timer (its eval, job, node and deployment passes). ACL,
+secrets (and with them the Vault policy allowlist at admission),
+namespaces (a job's namespace is not checked against a namespace table),
+volumes and the volume watcher, services (and the GC timer's service and
+token sweeps), scaling policies and the scaling-event log, the watch
+hub, the node-register batcher, the metrics providers and the event
 stream stay with the reference.
 
 Every mutation flows through raft_apply. The endpoint methods here are
@@ -30,6 +38,7 @@ from ..scheduler.context import SchedulerConfig
 from ..state import StateStore
 from ..structs import (
     Allocation,
+    DrainStrategy,
     Evaluation,
     Job,
     generate_uuid,
@@ -41,6 +50,7 @@ from ..structs.structs import (
     EVAL_STATUS_PENDING,
     EVAL_TRIGGER_JOB_DEREGISTER,
     EVAL_TRIGGER_JOB_REGISTER,
+    EVAL_TRIGGER_NODE_DRAIN,
     EVAL_TRIGGER_NODE_UPDATE,
     EVAL_TRIGGER_RETRY_FAILED_ALLOC,
     JOB_TYPE_CORE,
@@ -49,8 +59,12 @@ from ..structs.structs import (
     NODE_STATUS_READY,
 )
 from .blocked_evals import BlockedEvals
+from .core_sched import core_eval
+from .deployment_watcher import DeploymentsWatcher
+from .drainer import NodeDrainer
 from .eval_broker import EvalBroker
 from .heartbeat import HeartbeatWheel
+from .periodic import PeriodicDispatch
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .raft import FSM, InmemLog
@@ -92,6 +106,14 @@ class Server:
             on_expire_batch=self._invalidate_heartbeat_batch,
         )
         self.heartbeaters.node_count_fn = lambda: len(self.state.nodes())
+        self.deployment_watcher = DeploymentsWatcher(self.state, self.raft_apply)
+        self.drainer = NodeDrainer(self.state, self.raft_apply)
+        self.periodic = PeriodicDispatch(self.state, self.raft_apply)
+        # Threshold GC cadence (reference leader.go schedulePeriodic: one
+        # timer per GC kind, 5m default).
+        self.gc_interval_s = 300.0
+        self._gc_stop = threading.Event()
+        self._gc_thread: Optional[threading.Thread] = None
 
         all_types = ["service", "batch", "system", "sysbatch"]
         if enabled_schedulers is None:
@@ -144,6 +166,7 @@ class Server:
         self.fsm.on_eval_update = self._on_eval_update
         self.fsm.on_node_update = self._on_node_update
         self.fsm.on_alloc_client_update = self._on_alloc_client_update
+        self.fsm.on_job_upsert = self._on_job_upsert
         self._leader = False
 
     # -- lifecycle -----------------------------------------------------
@@ -159,6 +182,17 @@ class Server:
             w.start()
         if self.tpu_worker:
             self.tpu_worker.start()
+        self.deployment_watcher.start()
+        self.drainer.start()
+        self.periodic.start()
+        # Fresh Event per incarnation (see Worker.start): a thread that
+        # outlives join(timeout) polls its own event and still exits.
+        self._gc_stop = threading.Event()
+        self._gc_thread = threading.Thread(
+            target=self._gc_loop, args=(self._gc_stop,), daemon=True,
+            name="gc-scheduler"
+        )
+        self._gc_thread.start()
         self._leader = True
         self._restore_evals()
         # Arm a liveness TTL for every node we believe is alive
@@ -175,6 +209,13 @@ class Server:
 
     def revoke_leadership(self) -> None:
         self._leader = False
+        self._gc_stop.set()
+        if self._gc_thread:
+            self._gc_thread.join(timeout=5)
+            self._gc_thread = None
+        self.deployment_watcher.stop()
+        self.drainer.stop()
+        self.periodic.stop()
         for w in self.workers:
             w.stop()
         for w in self.workers:
@@ -274,15 +315,96 @@ class Server:
                 # blocked-eval state from the store (restoreEvals).
                 logger.debug("requeue of unblocked eval %s dropped", ev.id)
 
+    def _on_job_upsert(self, job, ns_id) -> None:
+        """Keep the periodic dispatcher's tracked set in sync with the FSM
+        (reference fsm.go ApplyJobRegister -> periodicDispatcher.Add)."""
+        if not self._leader:
+            return
+        if job is None:
+            self.periodic.remove(*ns_id)
+        else:
+            self.periodic.add(job)
+
     # -- job endpoint --------------------------------------------------
+
+    def apply_memory_oversubscription_gate(self, job: Job) -> None:
+        """Strip memory_max unless the scheduler config enables it
+        (reference: Register gates MemoryMaxMB) — register AND plan
+        must apply the same gate or plan diffs lie about destructive
+        updates."""
+        if not self.scheduler_config.memory_oversubscription:
+            for tg in job.task_groups:
+                for task in tg.tasks:
+                    task.resources.memory_max_mb = 0
+
+    def validate_job_submission(self, job: Job) -> Job:
+        """The register-time validation front-half on a COPY:
+        canonicalize, Connect injection, struct validation,
+        oversubscription gate, scaling bounds. (The reference also checks
+        vault policies against the operator allowlist; with no allowlist
+        set, its default, that check admits everything.)"""
+        job = job.copy()
+        job.canonicalize()
+        # Connect admission: inject sidecar tasks/ports/mesh services
+        # BEFORE validation so the injected pieces are validated too
+        # (reference job_endpoint_hooks.go:60 jobConnectHook).
+        from ..connect import inject_connect_sidecars
+
+        inject_connect_sidecars(job)
+        job.validate()
+        self.apply_memory_oversubscription_gate(job)
+        for tg in job.task_groups:
+            # scaling stanza sanity at SUBMIT time (reference
+            # ScalingPolicy.Validate): a min>max or out-of-bounds count
+            # would make the group permanently unscalable
+            sc = tg.scaling
+            if sc is not None and sc.enabled:
+                if sc.min < 0 or (sc.max and sc.max < sc.min):
+                    raise ValueError(
+                        f"group {tg.name!r}: scaling bounds invalid "
+                        f"(min {sc.min}, max {sc.max})"
+                    )
+                if tg.count < sc.min or (sc.max and tg.count > sc.max):
+                    raise ValueError(
+                        f"group {tg.name!r}: count {tg.count} outside "
+                        f"scaling bounds [{sc.min}, {sc.max}]"
+                    )
+        return job
+
+    def check_eval_admission(self, namespace: str) -> None:
+        """Front-door overload guard for the eval-minting write
+        endpoints — called directly by job_register (which also covers
+        scale and revert, since both re-register), job_force_evaluate
+        and job_dispatch: when the broker's admission depth or the
+        namespace's fairness cap is exhausted, reject BEFORE raft with a
+        retry hint (BrokerSaturatedError). Reads, deregisters and
+        internal producers are never guarded here; the broker's own
+        per-eval admission covers those."""
+        sat = self.eval_broker.saturation(namespace)
+        if sat is None:
+            return
+        reason, retry_after = sat
+        metrics.incr("nomad.broker.rejected")
+        from ..ratelimit import BrokerSaturatedError
+
+        raise BrokerSaturatedError(
+            f"eval broker saturated ({reason}: "
+            f"{self.eval_broker.pending_count()} pending)",
+            retry_after_s=retry_after,
+        )
 
     def job_register(self, job: Job) -> str:
         """Returns the created eval id (reference job_endpoint.go:80):
-        the job is canonicalized and validated on a copy, then written
-        with its registration eval in one raft entry."""
-        job = job.copy()
-        job.canonicalize()
-        job.validate()
+        admission, then the job and its registration eval in one raft
+        entry."""
+        self.check_eval_admission(job.namespace)
+        job = self.validate_job_submission(job)
+        if job.is_periodic():
+            # A malformed cron spec must be rejected at the API, not fire
+            # wild from the dispatcher (reference periodic.go Add validates).
+            from .periodic import next_launch
+
+            next_launch(job.periodic, time.time())
         ev = None
         if not job.is_periodic() and not job.is_parameterized():
             ev = Evaluation(
@@ -298,6 +420,109 @@ class Server:
             )
         self.raft_apply("job_register", (job, ev))
         return ev.id if ev else ""
+
+    def alloc_stop(self, alloc_id: str) -> str:
+        """Stop one allocation and let the scheduler replace it
+        (reference alloc_endpoint.go Stop: DesiredTransition.Migrate +
+        an eval). Returns the eval id."""
+        from ..structs.structs import DesiredTransition
+
+        alloc = self.state.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise KeyError(f"alloc {alloc_id} not found")
+        job = alloc.job or self.state.job_by_id(alloc.namespace, alloc.job_id)
+        ev = Evaluation(
+            id=generate_uuid(),
+            namespace=alloc.namespace,
+            priority=job.priority if job else 50,
+            type=job.type if job else JOB_TYPE_SERVICE,
+            triggered_by="alloc-stop",
+            job_id=alloc.job_id,
+            status=EVAL_STATUS_PENDING,
+            create_time=now_ns(),
+            modify_time=now_ns(),
+        )
+        self.raft_apply(
+            "alloc_update_desired_transition",
+            ({alloc_id: DesiredTransition(migrate=True)}, [ev]),
+        )
+        return ev.id
+
+    def job_scale(self, namespace: str, job_id: str, group: str,
+                  count: int, message: str = "") -> str:
+        """Scale one task group (reference job_endpoint.go Scale :979:
+        count change re-registers the job, bumping its version and
+        producing an eval). Returns the eval id."""
+        if count < 0:
+            raise ValueError("count must be >= 0")
+        job = self.state.job_by_id(namespace, job_id)
+        if job is None:
+            raise KeyError(f"job {job_id} not found")
+        job = job.copy()
+        tg = job.lookup_task_group(group)
+        if tg is None:
+            raise ValueError(
+                f"task group {group!r} does not exist in job {job_id}"
+            )
+        if tg.scaling is not None and tg.scaling.enabled:
+            lo, hi = tg.scaling.min, tg.scaling.max
+            if count < lo or (hi and count > hi):
+                raise ValueError(
+                    f"count {count} outside scaling bounds [{lo}, {hi}] "
+                    f"for group {group!r}"
+                )
+        tg.count = count
+        # The reference also logs a scaling event (count, previous
+        # count, message) in its scaling-event table; that table comes
+        # with the scaling policies, so `message` is unused here.
+        return self.job_register(job)
+
+    def job_force_evaluate(self, namespace: str, job_id: str) -> str:
+        """Create a new eval for the job (reference job_endpoint.go
+        Evaluate / `nomad job eval`). Returns the eval id."""
+        self.check_eval_admission(namespace)
+        job = self.state.job_by_id(namespace, job_id)
+        if job is None:
+            raise KeyError(f"job {job_id} not found")
+        ev = Evaluation(
+            id=generate_uuid(),
+            namespace=namespace,
+            priority=job.priority,
+            type=job.type,
+            triggered_by="job-eval",
+            job_id=job_id,
+            status=EVAL_STATUS_PENDING,
+            create_time=now_ns(),
+            modify_time=now_ns(),
+        )
+        self.raft_apply("eval_update", [ev])
+        return ev.id
+
+    def reconcile_job_summaries(self) -> int:
+        """Rebuild every job summary from the alloc table (reference
+        system_endpoint.go ReconcileJobSummaries / `system reconcile
+        summaries`). Returns how many jobs were recomputed (raft_apply
+        returns the LOG INDEX, not the FSM result — count from state)."""
+        n = len(self.state.jobs())
+        self.raft_apply("summaries_reconcile", None)
+        return n
+
+    def job_plan(self, job: Job, diff: bool = True) -> dict:
+        """Dry-run the candidate job: run the real scheduler against a
+        snapshot without committing; return annotations + diff + failures
+        (reference job_endpoint.go:521 + scheduler/annotate.go)."""
+        from .job_plan import plan_job
+
+        job = job.copy()
+        # same admission mutations register applies — or the plan would
+        # diff a memory_max the register is about to strip and show the
+        # injected connect sidecars as deletions
+        job.canonicalize()
+        from ..connect import inject_connect_sidecars
+
+        inject_connect_sidecars(job)
+        self.apply_memory_oversubscription_gate(job)
+        return plan_job(self.state, job, diff, self.scheduler_config)
 
     def job_deregister(self, namespace: str, job_id: str, purge: bool = False) -> str:
         job = self.state.job_by_id(namespace, job_id)
@@ -364,6 +589,16 @@ class Server:
                 self.blocked_evals.unblock(
                     node.computed_class, self.state.latest_index()
                 )
+
+    def node_update_drain(
+        self, node_id: str, drain: Optional[DrainStrategy], mark_eligible: bool = False
+    ) -> None:
+        self.raft_apply("node_update_drain", (node_id, drain, mark_eligible))
+        if drain is not None:
+            self._create_node_evals(node_id, trigger=EVAL_TRIGGER_NODE_DRAIN)
+
+    def node_update_eligibility(self, node_id: str, eligibility: str) -> None:
+        self.raft_apply("node_update_eligibility", (node_id, eligibility))
 
     def _invalidate_heartbeat(self, node_id: str) -> None:
         """TTL expired: node is presumed dead (reference heartbeat.go:128)."""
@@ -490,6 +725,127 @@ class Server:
                         )
                     )
         return evals
+
+    # -- deployment endpoint (reference nomad/deployment_endpoint.go) --
+
+    def deployment_promote(
+        self, deployment_id: str, groups: Optional[list[str]] = None
+    ) -> None:
+        d = self.state.deployment_by_id(deployment_id)
+        if d is None:
+            raise KeyError(f"unknown deployment {deployment_id}")
+        if not d.active():
+            raise ValueError(f"deployment {deployment_id} is terminal")
+        self.deployment_watcher.promote(d, groups)
+
+    def deployment_pause(self, deployment_id: str, pause: bool) -> None:
+        d = self.state.deployment_by_id(deployment_id)
+        if d is None:
+            raise KeyError(f"unknown deployment {deployment_id}")
+        if not d.active():
+            raise ValueError(f"deployment {deployment_id} is terminal")
+        self.deployment_watcher.pause(d, pause)
+
+    def deployment_fail(self, deployment_id: str) -> None:
+        d = self.state.deployment_by_id(deployment_id)
+        if d is None:
+            raise KeyError(f"unknown deployment {deployment_id}")
+        if not d.active():
+            raise ValueError(f"deployment {deployment_id} is terminal")
+        self.deployment_watcher.fail_deployment(d)
+
+    def alloc_set_health(
+        self, deployment_id: str, healthy: list[str], unhealthy: list[str]
+    ) -> None:
+        """Deployment.SetAllocHealth (manual health override)."""
+        d = self.state.deployment_by_id(deployment_id)
+        if d is None:
+            raise KeyError(f"unknown deployment {deployment_id}")
+        self.raft_apply(
+            "deployment_alloc_health",
+            {
+                "deployment_id": deployment_id,
+                "healthy_ids": healthy,
+                "unhealthy_ids": unhealthy,
+            },
+        )
+
+    # -- job revert / dispatch (reference nomad/job_endpoint.go) -------
+
+    def job_revert(self, namespace: str, job_id: str, version: int) -> str:
+        """Re-register an older job version (reference Job.Revert)."""
+        current = self.state.job_by_id(namespace, job_id)
+        if current is None:
+            raise KeyError(f"unknown job {job_id}")
+        if version == current.version:
+            raise ValueError(f"job is already at version {version}")
+        target = self.state.job_version(namespace, job_id, version)
+        if target is None:
+            raise KeyError(f"job {job_id} has no version {version}")
+        revert = target.copy()
+        revert.stable = False
+        return self.job_register(revert)
+
+    def job_dispatch(
+        self,
+        namespace: str,
+        job_id: str,
+        payload: bytes = b"",
+        meta: Optional[dict[str, str]] = None,
+    ) -> tuple[str, str]:
+        """Dispatch a parameterized job (reference Job.Dispatch). Returns
+        (child_job_id, eval_id)."""
+        self.check_eval_admission(namespace)
+        parent = self.state.job_by_id(namespace, job_id)
+        if parent is None:
+            raise KeyError(f"unknown job {job_id}")
+        if not parent.is_parameterized():
+            raise ValueError(f"job {job_id} is not parameterized")
+        cfg = parent.parameterized
+        meta = dict(meta or {})
+        if cfg.payload == "required" and not payload:
+            raise ValueError("payload is required by this job")
+        if cfg.payload == "forbidden" and payload:
+            raise ValueError("payload is forbidden by this job")
+        for key in cfg.meta_required:
+            if key not in meta:
+                raise ValueError(f"missing required dispatch meta {key!r}")
+        for key in meta:
+            if key not in cfg.meta_required and key not in cfg.meta_optional:
+                raise ValueError(f"dispatch meta {key!r} not allowed")
+        child = parent.copy()
+        child.id = f"{parent.id}/dispatch-{now_ns() // 1_000_000_000}-{generate_uuid()[:8]}"
+        child.name = child.id
+        child.parent_id = parent.id
+        child.dispatched = True
+        child.payload = payload
+        child.meta.update(meta)
+        child.status = ""
+        ev = Evaluation(
+            id=generate_uuid(),
+            namespace=child.namespace,
+            priority=child.priority,
+            type=child.type,
+            triggered_by="job-register",
+            job_id=child.id,
+            status=EVAL_STATUS_PENDING,
+            create_time=now_ns(),
+            modify_time=now_ns(),
+        )
+        self.raft_apply("job_register", (child, ev))
+        return child.id, ev.id
+
+    # -- GC (reference nomad/system_endpoint.go + leader.go) -----------
+
+    def force_gc(self) -> None:
+        """System.GarbageCollect: enqueue a force-gc core eval."""
+        self.eval_broker.enqueue(core_eval("force-gc"))
+
+    def _gc_loop(self, stop: threading.Event) -> None:
+        """Periodic threshold GC (reference leader.go schedulePeriodic)."""
+        while not stop.wait(self.gc_interval_s):
+            for kind in ("eval-gc", "job-gc", "node-gc", "deployment-gc"):
+                self.eval_broker.enqueue(core_eval(kind))
 
     # -- client alloc updates -----------------------------------------
 

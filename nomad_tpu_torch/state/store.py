@@ -279,6 +279,31 @@ class _ReadMixin:
     def job_version(self, namespace: str, job_id: str, version: int) -> Optional[Job]:
         return self._tables[TABLE_JOB_VERSIONS].get((namespace, job_id, version))
 
+    @_locked_on_live
+    def job_versions(self, namespace: str, job_id: str) -> list[Job]:
+        out = [
+            j
+            for (ns, jid, _), j in self._tables[TABLE_JOB_VERSIONS].items()
+            if ns == namespace and jid == job_id
+        ]
+        out.sort(key=lambda j: j.version, reverse=True)
+        return out
+
+    @_locked_on_live
+    def jobs_by_periodic(self) -> list[Job]:
+        return [j for j in self._tables[TABLE_JOBS].values() if j.is_periodic()]
+
+    @_locked_on_live
+    def jobs_by_parent(self, namespace: str, parent_id: str) -> list[Job]:
+        return [
+            j
+            for (ns, _), j in self._tables[TABLE_JOBS].items()
+            if ns == namespace and j.parent_id == parent_id
+        ]
+
+    def job_summary_by_id(self, namespace: str, job_id: str) -> Optional[JobSummary]:
+        return self._tables[TABLE_JOB_SUMMARIES].get((namespace, job_id))
+
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._tables[TABLE_EVALS].get(eval_id)
 
@@ -364,6 +389,14 @@ class _ReadMixin:
             )
         ]
 
+    @_locked_on_live
+    def allocs_by_deployment(self, deployment_id: str) -> list[Allocation]:
+        return [
+            a.get() if a.__class__ is AllocRow else a
+            for a in self._tables[TABLE_ALLOCS].values()
+            if a.deployment_id == deployment_id
+        ]
+
     # namespaces -------------------------------------------------------
     # volumes ----------------------------------------------------------
     @_locked_on_live
@@ -390,8 +423,19 @@ class _ReadMixin:
     # operator config --------------------------------------------------
     # secrets ----------------------------------------------------------
     # deployments ------------------------------------------------------
+    def deployment_by_id(self, deployment_id: str) -> Optional[Deployment]:
+        return self._tables[TABLE_DEPLOYMENTS].get(deployment_id)
+
     def deployments(self) -> list[Deployment]:
         return list(self._tables[TABLE_DEPLOYMENTS].values())
+
+    @_locked_on_live
+    def deployments_by_job(self, namespace: str, job_id: str) -> list[Deployment]:
+        return [
+            d
+            for d in self._tables[TABLE_DEPLOYMENTS].values()
+            if d.namespace == namespace and d.job_id == job_id
+        ]
 
     @_locked_on_live
     def latest_deployment_by_job(
@@ -442,6 +486,10 @@ class StateStore(_ReadMixin):
     def latest_index(self) -> int:
         with self._lock:
             return self._latest_index
+
+    def table_index(self, *tables: str) -> int:
+        with self._lock:
+            return max(self._indexes[t] for t in tables)
 
     def snapshot_min_index(
         self, index: int, timeout_s: float = 5.0
@@ -760,6 +808,25 @@ class StateStore(_ReadMixin):
 
     # -- jobs ----------------------------------------------------------
 
+    def update_node_eligibility(
+        self, index: int, node_id: str, eligibility: str
+    ) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_NODES)
+            existing = t.get(node_id)
+            if existing is None:
+                raise KeyError(f"node {node_id} not found")
+            if existing.drain_strategy is not None and (
+                eligibility == NODE_SCHEDULING_ELIGIBLE
+            ):
+                raise ValueError("can't make draining node eligible")
+            node = existing.copy()
+            node.scheduling_eligibility = eligibility
+            node.modify_index = index
+            t[node_id] = node
+            self._stamp(index, TABLE_NODES)
+            self._publish(index, TABLE_NODES, [node], "NodeEligibilityUpdate")
+
     def upsert_job(self, index: int, job: Job, keep_version: bool = False) -> None:
         with self._lock:
             self._upsert_job_txn(index, job, keep_version)
@@ -826,6 +893,73 @@ class StateStore(_ReadMixin):
         st[job.ns_id()] = summary
 
     # -- evals ---------------------------------------------------------
+
+    def reconcile_job_summaries(self, index: int) -> int:
+        """Rebuild every job summary from the alloc table (reference
+        state_store.go ReconcileJobSummaries — `system reconcile
+        summaries` repairs drifted counters). Returns jobs recomputed."""
+        with self._lock:
+            st = self._wtable(TABLE_JOB_SUMMARIES)
+            jobs = dict(self._tables[TABLE_JOBS])
+            per_job: dict[tuple, dict[str, dict[str, int]]] = {}
+            for alloc in self._tables[TABLE_ALLOCS].values():
+                key = (alloc.namespace, alloc.job_id)
+                if key not in jobs:
+                    continue
+                groups = per_job.setdefault(key, {})
+                c = groups.setdefault(
+                    alloc.task_group,
+                    {
+                        "queued": 0,
+                        "complete": 0,
+                        "failed": 0,
+                        "running": 0,
+                        "starting": 0,
+                        "lost": 0,
+                    },
+                )
+                status = alloc.client_status
+                if alloc.server_terminal_status() and status not in (
+                    ALLOC_CLIENT_STATUS_COMPLETE,
+                    ALLOC_CLIENT_STATUS_FAILED,
+                    ALLOC_CLIENT_STATUS_LOST,
+                ):
+                    continue  # stopping: counted nowhere, like fresh GC
+                if status == ALLOC_CLIENT_STATUS_RUNNING:
+                    c["running"] += 1
+                elif status == ALLOC_CLIENT_STATUS_COMPLETE:
+                    c["complete"] += 1
+                elif status == ALLOC_CLIENT_STATUS_FAILED:
+                    c["failed"] += 1
+                elif status == ALLOC_CLIENT_STATUS_LOST:
+                    c["lost"] += 1
+                else:
+                    c["starting"] += 1
+            for key, job in jobs.items():
+                old = st.get(key)
+                summary = JobSummary(job.id, job.namespace)
+                summary.create_index = old.create_index if old else index
+                summary.modify_index = index
+                summary.summary = per_job.get(key, {})
+                for tg in job.task_groups:
+                    summary.summary.setdefault(
+                        tg.name,
+                        {
+                            "queued": 0,
+                            "complete": 0,
+                            "failed": 0,
+                            "running": 0,
+                            "starting": 0,
+                            "lost": 0,
+                        },
+                    )
+                if old is not None:
+                    summary.children_pending = old.children_pending
+                    summary.children_running = old.children_running
+                    summary.children_dead = old.children_dead
+                st[key] = summary
+            self._stamp(index, TABLE_JOB_SUMMARIES)
+            return len(jobs)
 
     def delete_job(self, index: int, namespace: str, job_id: str) -> None:
         with self._lock:
@@ -1458,6 +1592,14 @@ class StateStore(_ReadMixin):
                     index, TABLE_DEPLOYMENTS, gone, "DeploymentDeleted"
                 )
 
+    def upsert_deployment(self, index: int, deployment: Deployment) -> None:
+        with self._lock:
+            self._upsert_deployment_txn(index, deployment)
+            self._stamp(index, TABLE_DEPLOYMENTS)
+            self._publish(
+                index, TABLE_DEPLOYMENTS, [deployment], "DeploymentStatusUpdate"
+            )
+
     def _upsert_deployment_txn(self, index: int, deployment: Deployment) -> None:
         t = self._wtable(TABLE_DEPLOYMENTS)
         deployment = deployment.copy()
@@ -1480,6 +1622,146 @@ class StateStore(_ReadMixin):
         t[d.id] = d
 
     # -- derived state -------------------------------------------------
+
+    def update_deployment_status(self, index: int, update) -> None:
+        with self._lock:
+            self._update_deployment_status_txn(index, update)
+            self._stamp(index, TABLE_DEPLOYMENTS)
+            d = self._tables[TABLE_DEPLOYMENTS].get(update.deployment_id)
+            if d is not None:
+                self._publish(
+                    index, TABLE_DEPLOYMENTS, [d], "DeploymentStatusUpdate"
+                )
+
+    def update_deployment_promotion(
+        self,
+        index: int,
+        deployment_id: str,
+        groups: Optional[list[str]] = None,
+        eval_obj: Optional[Evaluation] = None,
+    ) -> None:
+        """Promote canaries (reference state_store.go UpdateDeploymentPromotion).
+
+        Marks the given groups (all canary groups when None) promoted and
+        flips the promoted allocs' canary flag off. Raises when a group has
+        fewer healthy canaries than desired.
+        """
+        with self._lock:
+            t = self._wtable(TABLE_DEPLOYMENTS)
+            existing = t.get(deployment_id)
+            if existing is None:
+                raise KeyError(f"unknown deployment {deployment_id}")
+            d = existing.copy()
+            targets = groups if groups else [
+                g for g, s in d.task_groups.items() if s.desired_canaries > 0
+            ]
+            canary_ids: set[str] = set()
+            # Validation (healthy canary counts) happens in the endpoint
+            # BEFORE the raft commit (check_promotion_ready) — an FSM apply
+            # must never raise, or replay of the log would poison followers.
+            for g in targets:
+                dstate = d.task_groups.get(g)
+                if dstate is None:
+                    continue
+                dstate.promoted = True
+                canary_ids.update(dstate.placed_canaries)
+            if not any(
+                s.desired_canaries > 0 and not s.promoted
+                for s in d.task_groups.values()
+            ):
+                d.status_description = "Deployment is running"
+            d.modify_index = index
+            d.modify_time = now_ns()
+            t[d.id] = d
+            # clear the canary flag on promoted allocs
+            at = self._wtable(TABLE_ALLOCS)
+            for cid in canary_ids:
+                a = at.get(cid)
+                if a is None or a.deployment_status is None:
+                    continue
+                na = a.copy()
+                na.deployment_status.canary = False
+                na.modify_index = index
+                na.modify_time = now_ns()
+                self._put_alloc(na, a)
+            if eval_obj is not None:
+                self._upsert_evals_txn(index, [eval_obj])
+                self._stamp(index, TABLE_EVALS)
+            self._stamp(index, TABLE_DEPLOYMENTS, TABLE_ALLOCS)
+            self._publish(
+                index, TABLE_DEPLOYMENTS, [d], "DeploymentPromotion"
+            )
+
+    def update_alloc_deployment_health(
+        self,
+        index: int,
+        deployment_id: str,
+        healthy_ids: list[str],
+        unhealthy_ids: list[str],
+        status_update=None,
+        eval_obj: Optional[Evaluation] = None,
+        revert_job: Optional[Job] = None,
+    ) -> None:
+        """Set alloc deployment health and resync the deployment's
+        healthy/unhealthy counters (reference state_store.go
+        UpdateDeploymentAllocHealth / upsertDeploymentUpdate). The optional
+        revert_job is upserted atomically (auto-revert)."""
+        with self._lock:
+            at = self._wtable(TABLE_ALLOCS)
+            ts = now_ns()
+            for aid, healthy in [(i, True) for i in healthy_ids] + [
+                (i, False) for i in unhealthy_ids
+            ]:
+                a = at.get(aid)
+                if a is None:
+                    continue
+                na = a.copy()
+                if na.deployment_status is None:
+                    from ..structs.structs import AllocDeploymentStatus
+
+                    na.deployment_status = AllocDeploymentStatus()
+                na.deployment_status.healthy = healthy
+                na.deployment_status.timestamp_ns = ts
+                na.modify_index = index
+                na.modify_time = ts
+                self._put_alloc(na, a)
+            # resync counters from the alloc table (single source of truth)
+            dt = self._wtable(TABLE_DEPLOYMENTS)
+            existing = dt.get(deployment_id)
+            if existing is not None:
+                d = existing.copy()
+                counts: dict[str, list[int]] = {g: [0, 0] for g in d.task_groups}
+                for a in self.allocs_by_deployment(deployment_id):
+                    if (
+                        a.deployment_status is None
+                        or a.task_group not in counts
+                        or a.terminal_status()
+                    ):
+                        continue
+                    if a.deployment_status.is_healthy():
+                        counts[a.task_group][0] += 1
+                    elif a.deployment_status.is_unhealthy():
+                        counts[a.task_group][1] += 1
+                for g, (h, u) in counts.items():
+                    d.task_groups[g].healthy_allocs = h
+                    d.task_groups[g].unhealthy_allocs = u
+                d.modify_index = index
+                d.modify_time = now_ns()
+                dt[d.id] = d
+            if status_update is not None:
+                self._update_deployment_status_txn(index, status_update)
+            if revert_job is not None:
+                self._upsert_job_txn(index, revert_job)
+                self._stamp(index, TABLE_JOBS)
+            if eval_obj is not None:
+                self._upsert_evals_txn(index, [eval_obj])
+                self._stamp(index, TABLE_EVALS)
+            self._stamp(index, TABLE_DEPLOYMENTS, TABLE_ALLOCS)
+            d2 = self._tables[TABLE_DEPLOYMENTS].get(deployment_id)
+            if d2 is not None:
+                self._publish(
+                    index, TABLE_DEPLOYMENTS, [d2], "DeploymentAllocHealth"
+                )
 
     def _reconcile_summaries_txn(
         self, index: int, jobs_touched: set[tuple[str, str]]
@@ -1532,6 +1814,31 @@ class StateStore(_ReadMixin):
             summary.summary = counts
             summary.modify_index = index
             st[(ns, job_id)] = summary
+
+    def update_job_queued_allocs(
+        self, index: int, namespace: str, job_id: str, queued: dict[str, int]
+    ) -> None:
+        with self._lock:
+            st = self._wtable(TABLE_JOB_SUMMARIES)
+            summary = st.get((namespace, job_id))
+            if summary is None:
+                return
+            summary = summary.copy()
+            for group, count in queued.items():
+                summary.summary.setdefault(
+                    group,
+                    {
+                        "queued": 0,
+                        "complete": 0,
+                        "failed": 0,
+                        "running": 0,
+                        "starting": 0,
+                        "lost": 0,
+                    },
+                )["queued"] = count
+            summary.modify_index = index
+            st[(namespace, job_id)] = summary
+            self._stamp(index, TABLE_JOB_SUMMARIES)
 
     def _update_job_status_txn(self, index: int, namespace: str, job_id: str) -> None:
         """Derive job status from its allocs and evals (reference

@@ -499,10 +499,13 @@ def test_port_never_imports_jax_or_nomad_tpu():
         "    importlib.import_module(m.name)\n"
         "    seen.add(m.name)\n"
         "need = {'nomad_tpu_torch.' + m for m in ('native', 'server',"
-        " 'retry', 'faultplane', 'hostobs', 'blackbox')}\n"
+        " 'retry', 'faultplane', 'hostobs', 'blackbox', 'ratelimit',"
+        " 'tcprelay', 'connect', 'connect.hook', 'connect.sidecar',"
+        " 'structs.diff')}\n"
         "need |= {'nomad_tpu_torch.server.' + m for m in ('plan_queue',"
         " 'eval_broker', 'blocked_evals', 'raft', 'plan_apply', 'heartbeat',"
-        " 'core_sched', 'worker', 'server')}\n"
+        " 'core_sched', 'worker', 'server', 'job_plan',"
+        " 'deployment_watcher', 'drainer', 'periodic')}\n"
         "assert need <= seen, sorted(need - seen)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'nomad_tpu' or m.startswith('nomad_tpu.')]\n"
