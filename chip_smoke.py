@@ -98,9 +98,11 @@ Phases (one JSON line each, with its seconds):
                 re-solved by solve_host_fallback, every alloc placed),
                 server.system (a system job, then a new node that the
                 system worker places it on) and server.overlap (the
-                same 100 jobs on fresh servers, serial, pipelined,
-                pipelined, serial, all traced: the walls and the
-                overlap ratio, a number to record, not a gate);
+                first SERVER_OVERLAP_JOBS of those jobs on fresh
+                servers, serial, pipelined, pipelined, serial, all
+                traced: the walls and the overlap ratio, a number to
+                record, not a gate; cut from 100 jobs to 40 when the
+                tenancy phase came, to keep the run's time);
   7. pool     — the solver pool (nomad_tpu's server/solver_pool.py and
                 scheduler/tpu/remote_solve.py, ported) over the port's RPC
                 fabric: the port's Server as leader (the GPU batch worker,
@@ -174,7 +176,49 @@ Phases (one JSON line each, with its seconds):
                 K1 once per compact batch and per plan, K2 not donated at
                 least once. Each step prints its wall, evals, batches,
                 watcher passes and summed spans;
-  9. mesh     — the node-sharded route (kernels also checks the sharded
+  9. tenancy  — the tenancy and cluster tables (nomad_tpu's namespaces,
+                acl/, CSI volumes with their claims and
+                server/volume_watcher.py, services, secrets and Vault
+                task tokens, scaling policies, server/search.py,
+                server/watch_hub.py and stream/ with state/events.py,
+                ported) through the Server's own endpoints at c2m's
+                width (TEN), the GPU batch worker pipelined in batches
+                of 8 and every watcher thread running, one event-stream
+                subscription over every topic held across the phase.
+                tenancy.setup: c2m's 10,000 nodes (dc1's 2,500 with a
+                healthy node-capable CSI plugin `ebs`) through
+                Server.node_register from 32 threads, coalesced by the
+                NodeRegisterBatcher (the entry count printed), then the
+                heartbeat wheel switched off (no client runs); default
+                bootstrapped at leadership, team-a and team-b upserted,
+                a job into team-c refused with the store unmoved (C1);
+                ACL bootstrap, a team-a submit-job policy, a token for it
+                resolved. tenancy.volumes: a multi-writer CSI volume
+                `data` and a single-writer `solo` in team-a; 4 c2m jobs
+                asking for `data`: all 4,000 allocs on dc1 (the screen
+                masks K1 to the plugin's 2,500 nodes, checked on the
+                recorded call), 4,000 claims each written in its alloc's
+                commit; a count-1 job claims `solo`, a second is blocked,
+                the first stopped, the volume watcher releases its claim
+                and the second places and claims; deregistering `data`
+                refused. tenancy.jobs: 16 c2m jobs with a scaling stanza
+                across the three namespaces (16 policies synced), one
+                job_scale (one scaling event), prefix_search.
+                tenancy.services: a registration per alloc of one job,
+                a get_client_allocs watch through the watch hub on a dc1
+                node woken by the job's stop, half the rows dropped by
+                services_deregister_alloc and the rest by service_gc.
+                tenancy.secrets: secret_upsert; with the Vault allowlist
+                set, a job inside it admitted and one of its allocs
+                deriving and renewing a task token, a job outside it
+                refused at admission, a token derived with the TTL
+                shortened on the instance swept by token_gc. Each step
+                prints its wall, its K1-K3 launches, its events by topic
+                (checked against its writes) and its summed spans (with
+                events.publish, the stream's share of the FSM apply). No
+                device failover or failed batch, every eval complete, no
+                node over capacity; K1 in the volumes and jobs steps;
+  10. mesh    — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -188,7 +232,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  10. replay  — each kernel's first call on its path replayed against its
+  11. replay  — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -203,8 +247,10 @@ Phases (one JSON line each, with its seconds):
                 also at the server phase's first calls (`server`,
                 `server_copy` in their lines, exact, timed beside their
                 bounds), K1 and K2 not donated at the lifecycle phase's
-                (`lifecycle`, `lifecycle_copy`);
-  11. small   — the same three waves at 200 nodes, and at 500 nodes on
+                (`lifecycle`, `lifecycle_copy`), K1 at the tenancy
+                phase's first masked call (`tenancy`, with the nodes its
+                live groups may place on);
+  12. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
@@ -215,16 +261,22 @@ Phases (one JSON line each, with its seconds):
                 canary 2, max_parallel 10, migrate 5) with every batch
                 and watcher pass driven by hand (lifecycle_lockstep,
                 which tests/test_torch_lifecycle.py also runs against
-                nomad_tpu's Server), on the card and on the CPU twins:
-                identical placements, victims, eval outcomes, chain
-                verdicts, plans, deployments, job versions and drain
-                marks.
+                nomad_tpu's Server), and the tenancy steps at 200 nodes
+                (TEN_SMALL: jobs of 50, the fleet from one thread) with
+                every batch and watcher pass driven by hand
+                (tenancy_lockstep, which tests/test_torch_tenancy.py also
+                runs against nomad_tpu's Server), on the card and on the
+                CPU twins: identical placements, victims, eval outcomes,
+                chain verdicts, plans, deployments, job versions, drain
+                marks, claims, services, scaling policies and events,
+                ACL and secret tables and the event sequence.
 
 Then the card's name and power limit (nvidia-smi), one {"kernels": [...]}
 line (K1-K3 also carry `server_launches`, their count in the server
 phase; every kernel `pool_launches`, its count in pool.c2m, and
-`lifecycle_launches`, its count in the lifecycle phase; K1 and K2
-`pool`, each member's first call held and timed), and last {"ok": true,
+`lifecycle_launches`, its count in the lifecycle phase, and
+`tenancy_launches`, its count in the tenancy phase; K1 and K2 `pool`,
+each member's first call held and timed), and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is nonzero and no
 result line is printed. Without a CUDA
 device it exits 2 before doing anything.
@@ -316,10 +368,15 @@ def check(cond: bool, what: str) -> None:
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds per call, each call between two CUDA events:
     the host's dispatch between the events is counted too. For the plain
-    twins, whose index masks wait on the card inside the call."""
+    twins, whose index masks wait on the card inside the call. A call
+    whose warmup took over a second (the plain twins of K1 at c2m's
+    width and of K7, 2-9 s a call) is timed once."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if warmup and (time.perf_counter() - t0) / warmup > 1.0:
+        reps = 1
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -1502,13 +1559,14 @@ SERVER_BATCH = 8
 SERVER_ROLL_NEW, SERVER_ROLL_AT = 20, (10, 14, 18, 22)
 # the spans a batch trace sums (trace.finished_traces): the solve stage,
 # the commit stage, the applier's verify and raft apply under the plan
-# submit, and the log's encode and FSM apply under it
+# submit, the FSM apply under it and, under that, the event stream's
+# publish of the store's writes
 SERVER_SPANS = (
     "broker.drain", "snapshot.wait", "solve.dispatch", "reconcile", "sync",
     "node_table", "lower", "host_prep", "commit.handoff", "commit.finish",
     "device.wait", "readback", "materialize", "plan.assemble",
     "plan.submit", "plan.verify", "plan.raft_apply", "fsm.apply",
-    "eval.ack",
+    "events.publish", "eval.ack",
 )
 
 
@@ -1711,9 +1769,15 @@ def check_server(res) -> None:
     check(res["chained_batches"] >= 1, "no batch chained")
 
 
+# server.overlap's depth: the first 40 of c2m's 100 jobs on each of its
+# four fresh servers (100 until the tenancy phase came; the earlier
+# overlap ratios in PERF.md are at 100)
+SERVER_OVERLAP_JOBS = 40
+
+
 def server_overlap(device: str, n_nodes: int, n_jobs: int,
                    count: int) -> dict:
-    """The same fleet and 100 jobs on fresh servers, traced, serial
+    """The same fleet and n_jobs c2m jobs on fresh servers, traced, serial
     (pipeline=False: the worker solves and commits each batch before it
     dequeues the next) and pipelined in the order serial, pipelined,
     pipelined, serial, so a drift over the four runs falls on both.
@@ -2546,6 +2610,745 @@ def lifecycle_small(device: str, nodes: list, drained: list) -> dict:
                                   LIFE_SMALL)
     finally:
         srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# tenancy: namespaces, ACL, CSI volumes with their claims and the volume
+# watcher, services, secrets with Vault task tokens, scaling policies,
+# search, the watch hub and the event stream, through the Server's own
+# endpoints (nomad_tpu's server.py, state/, acl/, stream/, ported)
+# ---------------------------------------------------------------------------
+
+# c2m's fleet and job shape. dc1's nodes run a healthy node-capable CSI
+# plugin `ebs`; `data_jobs` jobs in team-a ask for the multi-writer CSI
+# volume `data` (every alloc lands on dc1: the screen masks K1 to dc1's
+# nodes), `jobs` more carry a scaling stanza (min 1, max 2 x count) across
+# default, team-a and team-b; the fleet registers through the
+# NodeRegisterBatcher from `threads` threads.
+TEN = {"nodes": 10000, "count": 1000, "data_jobs": 4, "jobs": 16,
+       "scale_to": 1200, "vault_count": 10, "threads": 32,
+       "token_ttl_s": 0.5}
+# the same steps at 200 nodes, every batch and watcher pass by hand, the
+# fleet registered from one thread (one batch entry a node)
+TEN_SMALL = {"nodes": 200, "count": 50, "data_jobs": 4, "jobs": 16,
+             "scale_to": 60, "vault_count": 2, "threads": 1,
+             "token_ttl_s": 0.05}
+TEN_PLUGIN = "ebs"
+TEN_PLUGIN_DC = "dc1"
+TEN_SPACES = ("default", "team-a", "team-b")
+TEN_POLICY = ('namespace "team-a" {\n  policy = "read"\n'
+              '  capabilities = ["submit-job"]\n}\n')
+TEN_VAULT = ["db-read"]
+TEN_TG = "web"
+# topics the store publishes (nomad_tpu's state/events.py table map)
+EVENT_TOPICS = ("Node", "Job", "Evaluation", "Allocation", "Deployment",
+                "Service", "Volume")
+
+
+def port_kit():
+    """The port's modules a tenancy run reaches besides the Server (the
+    tests hand nomad_tpu's to the same functions)."""
+    from nomad_tpu_torch.acl import structs as acl
+    from nomad_tpu_torch.server.core_sched import CoreScheduler
+    from nomad_tpu_torch.server.search import prefix_search
+    from nomad_tpu_torch.structs import structs as S
+
+    return types.SimpleNamespace(S=S, acl=acl, core=CoreScheduler,
+                                 prefix_search=prefix_search)
+
+
+def with_plugin(nodes: list, node_class) -> list:
+    """The fleet with the CSI plugin fingerprinted on dc1's nodes (their
+    class recomputed: the plugin is part of it)."""
+    for n in nodes:
+        if n.datacenter == TEN_PLUGIN_DC:
+            n.csi_plugins[TEN_PLUGIN] = {"healthy": True, "node": True,
+                                         "controller": False,
+                                         "version": "1.0.0"}
+            n.computed_class = node_class(n)
+    return nodes
+
+
+def csi_job(S, make, job_id: str, ns: str, count: int, source: str):
+    job = make(job_id, count)
+    job.namespace = ns
+    job.task_groups[0].volumes = {
+        "data": S.VolumeRequest(name="data", type="csi", source=source)}
+    return job
+
+
+def scaled_job(S, make, job_id: str, ns: str, count: int):
+    job = make(job_id, count)
+    job.namespace = ns
+    job.task_groups[0].scaling = S.ScalingPolicy(min=1, max=2 * count,
+                                                 enabled=True)
+    return job
+
+
+def vault_job(make, job_id: str, count: int, policies: list):
+    job = make(job_id, count)
+    job.namespace = "team-a"
+    job.task_groups[0].tasks[0].vault = {"policies": list(policies)}
+    return job
+
+
+def job_live(state, ns: str, job_id: str) -> list:
+    return sorted((a for a in state.allocs_by_job(ns, job_id)
+                   if not a.terminal_status()), key=lambda a: a.name)
+
+
+def refused(fn) -> str:
+    """The error a call raises, as 'Type: message'; '' if it returns."""
+    try:
+        fn()
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+class EventTap:
+    """One subscription over every topic on a server's event broker,
+    held across a run and drained on its own thread. `sync` waits until
+    it has read everything published so far (the store publishes inside
+    each write, so once a write returns its events are in the ring)."""
+
+    def __init__(self, broker) -> None:
+        self.sub = broker.subscribe({"*": ["*"]})
+        self.events: list = []
+        self.error = None
+        self._want = threading.Event()
+        self._synced = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="event-tap")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                got = self.sub.next(timeout_s=0.05)
+            except Exception as e:  # fell off the ring, or closed
+                self.error = f"{type(e).__name__}: {e}"
+                self._synced.set()
+                return
+            self.events.extend(got)
+            if not got and self._want.is_set():
+                self._want.clear()
+                self._synced.set()
+
+    def sync(self) -> int:
+        """Read up to now; returns how many events are held."""
+        self._synced.clear()
+        self._want.set()
+        check(self._synced.wait(120), "the event tap did not catch up")
+        check(self.error is None, f"event subscription lost: {self.error}")
+        return len(self.events)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.sub.close()
+
+
+def by_topic(events) -> dict:
+    out = {t: 0 for t in EVENT_TOPICS}
+    for e in events:
+        out[e.topic] = out.get(e.topic, 0) + 1
+    return out
+
+
+def by_type(events, topic: str) -> dict:
+    out: dict = {}
+    for e in events:
+        if e.topic == topic:
+            out[e.type] = out.get(e.type, 0) + 1
+    return out
+
+
+def event_view(events) -> list:
+    """The event sequence as (index, [(topic, type, key)] sorted within
+    the index). Keys the server mints (alloc, eval and deployment ids)
+    are replaced by what names them: (job, alloc name), (job, trigger,
+    status), (job, version, status)."""
+    blocks: dict = {}
+    for e in events:
+        p = e.payload
+        if e.topic == "Allocation":
+            key = (p.job_id, p.name)
+        elif e.topic == "Evaluation":
+            key = (p.job_id, p.triggered_by, p.status)
+        elif e.topic == "Deployment":
+            key = (p.job_id, p.job_version, p.status)
+        else:
+            key = e.key
+        blocks.setdefault(e.index, []).append((e.topic, e.type, key))
+    return [(i, sorted(blocks[i], key=repr)) for i in sorted(blocks)]
+
+
+def tenancy_outcome(srv) -> dict:
+    """What two tenancy runs are compared on, ids normalised: live
+    placements by (namespace, job, alloc name, node), each volume's
+    claims by the claiming alloc's (job, name, node) with the claim's
+    index, services, scaling policies and events, namespaces, ACL
+    policies and tokens (a task token's name without its alloc id),
+    secrets (values included)."""
+    state = srv.state
+    placed = sorted((a.namespace, a.job_id, a.name, a.node_id)
+                    for a in state.allocs() if not a.terminal_status())
+    claims = {}
+    for v in state.volumes():
+        rows = []
+        for aid, c in v.claims.items():
+            a = state.alloc_by_id(aid)
+            rows.append(((a.job_id, a.name) if a is not None else ("?", aid))
+                        + (c.node_id, c.read_only, c.create_index))
+        claims[f"{v.namespace}/{v.id}"] = sorted(rows)
+    volumes = sorted((v.namespace, v.id, v.access_mode, v.create_index,
+                      v.modify_index) for v in state.volumes())
+    services = sorted((r.id, r.service_name, r.job_id, r.node_id,
+                       r.create_index)
+                      for n in state.service_names()
+                      for r in state.service_registrations(
+                          n["namespace"], n["service_name"]))
+    policies = [(p.id, p.min, p.max, p.enabled, p.create_index,
+                 p.modify_index) for p in state.scaling_policies()]
+    scaling_events = {}
+    for p in state.scaling_policies():
+        evs = state.scaling_events(p.namespace, p.job_id)
+        if evs:
+            scaling_events[f"{p.namespace}/{p.job_id}"] = {
+                g: [(e["Count"], e["PreviousCount"], e["Message"])
+                    for e in lst] for g, lst in sorted(evs.items())}
+    return {
+        "placed": placed, "claims": claims, "volumes": volumes,
+        "services": services, "scaling_policies": policies,
+        "scaling_events": scaling_events,
+        "namespaces": sorted((n.name, n.description, n.create_index,
+                              n.modify_index) for n in state.namespaces()),
+        "acl_policies": sorted((p.name, p.rules, p.create_index,
+                                p.modify_index)
+                               for p in state.acl_policies()),
+        "acl_tokens": sorted((re.sub(r"^task-[0-9a-f]{8}-", "task-*-",
+                                     t.name), t.type, tuple(t.policies),
+                              bool(t.expiration_time_ns), t.create_index,
+                              t.modify_index) for t in state.acl_tokens()),
+        "secrets": sorted((e.namespace, e.path, sorted(e.items.items()),
+                           e.create_index, e.modify_index)
+                          for e in state.secrets()),
+    }
+
+
+class HandDrive:
+    """Every eval solved by drive_batches and every watcher pass called
+    by hand: the same run on every server."""
+
+    def __init__(self, srv) -> None:
+        self.srv = srv
+        self.verdicts: list = []
+
+    def settle(self) -> None:
+        self.verdicts += drive_batches(self.srv)
+
+    def volume_pass(self, done, what: str) -> None:
+        self.srv.volume_watcher.run_once()
+        check(done(), what)
+
+    def unblocked(self, job, done, what: str) -> None:
+        # the release's unblock reaches the store through the unblock
+        # writer's thread: wait for that write, then solve
+        state = self.srv.state
+        wait_until(lambda: not any(
+            e.status == "blocked" for e in state.evals()
+            if e.job_id == job.id), f"{what}: the unblock's write")
+        self.settle()
+        check(done(), what)
+
+
+class ThreadDrive:
+    """The running Server's own threads: the batch worker, the volume
+    watcher (a pass a second) and the unblock writer."""
+
+    def __init__(self, srv) -> None:
+        self.srv = srv
+
+    def settle(self) -> None:
+        wait_settled(self.srv)
+
+    def volume_pass(self, done, what: str) -> None:
+        wait_until(done, what, timeout_s=60.0)
+
+    def unblocked(self, job, done, what: str) -> None:
+        wait_until(done, what, timeout_s=60.0)
+        wait_settled(self.srv)
+
+
+def ten_setup(srv, kit, nodes, make, cfg, led: bool) -> dict:
+    """The fleet through Server.node_register (the NodeRegisterBatcher
+    coalesces concurrent registrations into node_register_batch
+    entries), two namespaces, the C1 refusal, ACL bootstrap, a team-a
+    submit-job policy and a token for it, resolved."""
+    S, state = kit.S, srv.state
+    i0 = state.latest_index()
+    t = time.perf_counter()
+    chunks = [nodes[k::cfg["threads"]] for k in range(cfg["threads"])]
+    errors = []
+
+    def register(chunk):
+        try:
+            for n in chunk:
+                srv.node_register(n.copy())
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=register, args=(c,)) for c in chunks]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"node_register failed: {errors[:1]}")
+    register_s = time.perf_counter() - t
+    entries = state.latest_index() - i0
+    check(len(state.nodes()) == len(nodes),
+          f"{len(state.nodes())} nodes registered, want {len(nodes)}")
+    default = state.namespace_by_name("default")
+    check(not led or default is not None,
+          "default was not bootstrapped at leadership")
+    for ns in TEN_SPACES[1:]:
+        srv.namespace_upsert(S.Namespace(name=ns, description=ns))
+    before = state.latest_index()
+    stray = make("ten-stray", cfg["count"])
+    stray.namespace = "team-c"
+    c1 = refused(lambda: srv.job_register(stray))
+    check(c1 == "ValueError: namespace 'team-c' does not exist",
+          f"C1: a job into team-c: {c1!r}")
+    check(state.latest_index() == before
+          and state.job_by_id("team-c", stray.id) is None,
+          "C1: the refused job moved the store")
+    root = srv.acl_bootstrap()
+    srv.acl_policy_upsert([kit.acl.ACLPolicy(name="team-a-submit",
+                                             rules=TEN_POLICY)])
+    tok = srv.acl_token_create(kit.acl.ACLToken(
+        name="team-a-ci", type="client", policies=["team-a-submit"]))
+    acl = srv.resolve_token(tok.secret_id)
+    view = [acl.allow_namespace_op("team-a", "submit-job"),
+            acl.allow_namespace_op("team-b", "submit-job"),
+            srv.resolve_token(root.secret_id).is_management()]
+    check(view == [True, False, True], f"resolve_token: {view}")
+    return {"nodes": len(nodes), "register_threads": cfg["threads"],
+            "register_s": register_s, "node_register_batch_entries": entries,
+            "default_bootstrapped": default is not None,
+            "c1_refused": c1, "acl": view}
+
+
+def ten_volumes(srv, kit, make, cfg, drive, on_masked=None) -> dict:
+    """Two CSI volumes in team-a on `ebs`; `data_jobs` c2m jobs asking
+    for the multi-writer `data` land on dc1 alone, each claim written in
+    its placement's commit; a count-1 job claims the single-writer
+    `solo`, a second one finds it claimed; the first stopped, the
+    volume watcher releases its claim and the second places;
+    deregistering the claimed `data` is refused."""
+    S, state = kit.S, srv.state
+    for vid, mode in (("data", S.VOLUME_ACCESS_MULTI_WRITER),
+                      ("solo", S.VOLUME_ACCESS_SINGLE_WRITER)):
+        srv.volume_register(S.Volume(id=vid, namespace="team-a", name=vid,
+                                     type="csi", plugin_id=TEN_PLUGIN,
+                                     access_mode=mode))
+    jobs = [csi_job(S, make, f"ten-data-{j}", "team-a", cfg["count"], "data")
+            for j in range(cfg["data_jobs"])]
+    if on_masked is not None:
+        on_masked(True)
+    for job in jobs:
+        srv.job_register(job)
+    drive.settle()
+    if on_masked is not None:
+        on_masked(False)
+    live = [a for job in jobs for a in job_live(state, "team-a", job.id)]
+    want = cfg["data_jobs"] * cfg["count"]
+    check(len(live) == want, f"data: {len(live)} allocs placed, want {want}")
+    off = [a.id for a in live
+           if state.node_by_id(a.node_id).datacenter != TEN_PLUGIN_DC]
+    check(not off, f"data: {len(off)} allocs off {TEN_PLUGIN_DC}")
+    data = state.volume_by_id("team-a", "data")
+    check(set(data.claims) == {a.id for a in live},
+          f"data holds {len(data.claims)} claims for {len(live)} allocs")
+    late = [a.id for a in live
+            if data.claims[a.id].create_index != a.create_index]
+    check(not late, f"data: {len(late)} claims not in their alloc's commit")
+    solo1 = csi_job(S, make, "ten-solo-1", "team-a", 1, "solo")
+    solo2 = csi_job(S, make, "ten-solo-2", "team-a", 1, "solo")
+    srv.job_register(solo1)
+    drive.settle()
+    first = job_live(state, "team-a", solo1.id)
+    check(len(first) == 1 and set(state.volume_by_id("team-a", "solo")
+                                  .claims) == {first[0].id},
+          "solo: the first job's claim")
+    ev2 = srv.job_register(solo2)
+    drive.settle()
+    e2 = state.eval_by_id(ev2)
+    second = {"eval": e2.status, "failed": sorted(e2.failed_tg_allocs),
+              "blocked": sorted(e.status for e in state.evals()
+                                if e.job_id == solo2.id and e.id != ev2),
+              "placed": len(job_live(state, "team-a", solo2.id))}
+    check(second["placed"] == 0, f"solo: the second job placed: {second}")
+    srv.job_deregister("team-a", solo1.id)
+    drive.settle()
+    drive.volume_pass(
+        lambda: first[0].id not in state.volume_by_id("team-a", "solo")
+        .claims, "solo: the watcher released the stopped job's claim")
+
+    def second_claims():
+        got = job_live(state, "team-a", solo2.id)
+        return (len(got) == 1 and set(state.volume_by_id("team-a", "solo")
+                                      .claims) == {got[0].id})
+
+    drive.unblocked(solo2, second_claims,
+                    "solo: the second job placed and claimed after the "
+                    "release")
+    dereg = refused(lambda: srv.volume_deregister("team-a", "data"))
+    check(dereg == f"ValueError: volume data has {want} active claims",
+          f"volume_deregister of the claimed data: {dereg!r}")
+    nodes_dc1 = sum(1 for n in state.nodes()
+                    if n.datacenter == TEN_PLUGIN_DC)
+    return {"data_allocs": len(live), "data_claims": len(data.claims),
+            "plugin_nodes": nodes_dc1, "solo_second": second,
+            "deregister_refused": dereg}
+
+
+def ten_jobs(srv, kit, make, cfg, drive) -> dict:
+    """`jobs` c2m jobs with a scaling stanza across the three namespaces
+    (one policy each, synced at register), job_scale on the first (one
+    scaling event), then prefix_search on the job ids."""
+    S, state = kit.S, srv.state
+    jobs = [scaled_job(S, make, f"ten-job-{j}", TEN_SPACES[j % 3],
+                       cfg["count"]) for j in range(cfg["jobs"])]
+    for job in jobs:
+        srv.job_register(job)
+    drive.settle()
+    for job in jobs:
+        n = len(job_live(state, job.namespace, job.id))
+        check(n == cfg["count"], f"{job.id}: {n} allocs placed")
+    pols = state.scaling_policies()
+    check(len(pols) == cfg["jobs"]
+          and {p.id for p in pols} == {f"{j.namespace}/{j.id}/{TEN_TG}"
+                                       for j in jobs},
+          f"{len(pols)} scaling policies synced, want {cfg['jobs']}")
+    target = jobs[0]
+    srv.job_scale(target.namespace, target.id, TEN_TG, cfg["scale_to"],
+                  message="tenancy scale")
+    drive.settle()
+    n = len(job_live(state, target.namespace, target.id))
+    check(n == cfg["scale_to"], f"{target.id}: {n} allocs after the scale")
+    evs = state.scaling_events(target.namespace, target.id).get(TEN_TG, [])
+    check(len(evs) == 1 and evs[0]["Count"] == cfg["scale_to"]
+          and evs[0]["PreviousCount"] == cfg["count"],
+          f"scaling events: {evs}")
+    found = kit.prefix_search(state, "ten-job-", "jobs", "default")
+    want = sorted(j.id for j in jobs if j.namespace == "default")
+    check(found["Matches"].get("jobs") == want,
+          f"prefix_search: {found}")
+    return {"jobs": len(jobs), "scaling_policies": len(pols),
+            "scaled": [target.id, cfg["count"], cfg["scale_to"]],
+            "search_matches": len(want)}
+
+
+def ten_services(srv, kit, cfg, drive) -> dict:
+    """A service registration for each of one job's allocs; a blocking
+    watch (get_client_allocs through the watch hub) on the node of one
+    of them; the job stopped: the watch wakes, the clients' deregister
+    (services_deregister_alloc) removes half the rows and service_gc
+    sweeps the rest."""
+    S, state = kit.S, srv.state
+    job = state.job_by_id("team-a", "ten-job-1")
+    live = job_live(state, job.namespace, job.id)
+    regs = [S.ServiceRegistration(
+        id=f"{job.id}/{a.name}", service_name="ten-web",
+        namespace=job.namespace, node_id=a.node_id, job_id=job.id,
+        alloc_id=a.id, task_name=TEN_TG, port=8080) for a in live]
+    srv.services_register(regs)
+    n_reg = len(state.service_registrations(job.namespace, "ten-web"))
+    check(n_reg == len(live), f"services: {n_reg} of {len(live)} stored")
+    node = next(a.node_id for a in live
+                if state.node_by_id(a.node_id).datacenter == TEN_PLUGIN_DC)
+    min_index = state.latest_index() + 1
+    woke = {}
+
+    def watch():
+        t = time.perf_counter()
+        allocs, index = srv.get_client_allocs(node, min_index, 60.0)
+        woke.update(index=index, s=time.perf_counter() - t,
+                    stopped=sum(1 for a in allocs if a.job_id == job.id
+                                and a.desired_status == "stop"))
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    srv.job_deregister(job.namespace, job.id)
+    drive.settle()
+    watcher.join(60)
+    check(woke.get("index", 0) >= min_index and woke["stopped"] >= 1,
+          f"the watch on {node} did not see its alloc stop: {woke}")
+    stopped = [a.id for a in live]
+    half = stopped[:len(stopped) // 2]
+    for aid in half:
+        srv.services_deregister_alloc(aid)
+    swept = kit.core(srv, state.snapshot()).service_gc()
+    left = state.service_registrations(job.namespace, "ten-web")
+    check(not left and swept == len(stopped) - len(half),
+          f"services: {len(left)} left, service_gc swept {swept}")
+    return {"registered": n_reg, "deregistered_by_alloc": len(half),
+            "service_gc_swept": swept, "watch_woke": woke["index"]
+            >= min_index, "watch_stopped_allocs": woke["stopped"]}
+
+
+def ten_secrets(srv, kit, make, cfg, drive) -> dict:
+    """A secret; with the operator's Vault allowlist set, a job whose
+    vault policies lie in it is admitted and one of its allocs derives
+    and renews a task token; a job outside it is refused at admission;
+    a token derived with the TTL shortened on the instance expires and
+    token_gc sweeps it."""
+    S, state = kit.S, srv.state
+    srv.secret_upsert(S.SecretEntry(path="db/creds", namespace="team-a",
+                                    items={"user": "app", "pass": "s3cr3t"}))
+    srv.vault_allowed_policies = list(TEN_VAULT)
+    good = vault_job(make, "ten-vault", cfg["vault_count"], TEN_VAULT)
+    srv.job_register(good)
+    drive.settle()
+    live = job_live(state, "team-a", good.id)
+    check(len(live) == cfg["vault_count"], f"vault job: {len(live)} placed")
+    tok = srv.derive_task_token(live[0].id, "web")
+    stored = state.acl_token_by_secret(tok["secret_id"])
+    check(stored is not None and stored.policies == TEN_VAULT,
+          f"derived token: {stored}")
+    ttl = srv.renew_task_token(tok["accessor_id"])
+    before = state.latest_index()
+    bad = vault_job(make, "ten-vault-bad", cfg["vault_count"], ["root"])
+    denied = refused(lambda: srv.job_register(bad))
+    check(denied.startswith("PermissionError: vault policies not in the "
+                            "operator allowlist"),
+          f"the job outside the allowlist: {denied!r}")
+    check(state.latest_index() == before
+          and state.job_by_id("team-a", bad.id) is None,
+          "the refused vault job moved the store")
+    srv.DERIVED_TOKEN_TTL_S = cfg["token_ttl_s"]
+    try:
+        short = srv.derive_task_token(live[0].id, "web")
+    finally:
+        del srv.DERIVED_TOKEN_TTL_S
+    time.sleep(2 * cfg["token_ttl_s"])
+    swept = kit.core(srv, state.snapshot()).token_gc()
+    check(swept == 1 and state.acl_token_by_accessor(
+        short["accessor_id"]) is None
+        and state.acl_token_by_accessor(tok["accessor_id"]) is not None,
+        f"token_gc swept {swept}")
+    return {"renewed_ttl_s": ttl, "vault_refused": denied,
+            "token_gc_swept": swept}
+
+
+def check_events(steps: dict, nodes: int, cfg) -> None:
+    """Each step's events against its writes: a registration event per
+    node; two volume registrations, a claim event per claim, the
+    watcher's release; a service event per registration and per row
+    removed."""
+    s = steps["setup"]["events_by_type"]
+    check(s["Node"].get("NodeRegistration", 0) == nodes,
+          f"setup: {s['Node']} node events for {nodes} nodes")
+    v = steps["volumes"]["events_by_type"]["Volume"]
+    claims = cfg["data_jobs"] * cfg["count"] + 2
+    check(v.get("VolumeRegistered") == 2 and v.get("VolumeClaimed") == claims
+          and v.get("VolumeClaimReleased") == 1,
+          f"volumes: volume events {v}, want 2 registered, {claims} "
+          "claimed, 1 release")
+    sv = steps["services"]["events_by_type"]["Service"]
+    n = steps["services"]["registered"]
+    check(sv.get("ServiceRegistration") == n
+          and sv.get("ServiceDeregistration") == n,
+          f"services: service events {sv}")
+
+
+TEN_STEPS = ("setup", "volumes", "jobs", "services", "secrets")
+
+
+def tenancy_lockstep(srv, kit, make, nodes, cfg) -> dict:
+    """The tenancy steps at one seed with every eval solved by
+    drive_batches and every watcher pass called by hand, on a Server the
+    caller built with the GPU batch worker (nomad_tpu's Server in the
+    tests: `kit` and `make` come from the server's own package). Returns
+    tenancy_outcome plus each step's numbers, the event sequence and the
+    batch verdicts."""
+    lockstep_lead(srv)
+    srv.register_batcher.start()
+    tap = EventTap(srv.event_broker)
+    drive = HandDrive(srv)
+    out = {"steps": {}}
+    try:
+        for name in TEN_STEPS:
+            n0 = tap.sync()
+            if name == "setup":
+                res = ten_setup(srv, kit, nodes, make, cfg, led=False)
+            elif name == "volumes":
+                res = ten_volumes(srv, kit, make, cfg, drive)
+            elif name == "jobs":
+                res = ten_jobs(srv, kit, make, cfg, drive)
+            elif name == "services":
+                res = ten_services(srv, kit, cfg, drive)
+            else:
+                res = ten_secrets(srv, kit, make, cfg, drive)
+            got = tap.events[n0:tap.sync()]
+            res.pop("register_s", None)
+            res["events_by_type"] = {t: by_type(got, t)
+                                     for t in EVENT_TOPICS}
+            out["steps"][name] = res
+        check_events(out["steps"], len(nodes), cfg)
+        out["events"] = event_view(tap.events)
+    finally:
+        tap.close()
+    out.update(tenancy_outcome(srv))
+    out["verdicts"] = drive.verdicts
+    return out
+
+
+def tenancy_small(device: str, nodes: list) -> dict:
+    """TEN_SMALL's steps driven by hand (tenancy_lockstep) on a fresh
+    Server with the GPU batch worker on `device`."""
+    from nomad_tpu_torch.server import Server
+
+    srv = Server(use_tpu_batch_worker=True, scheduler_config=SchedulerConfig(
+        device=device, small_batch_threshold=0))
+    srv.tpu_worker.batch_size = SERVER_BATCH
+    try:
+        return tenancy_lockstep(srv, port_kit(), make_job,
+                                [n.copy() for n in nodes], TEN_SMALL)
+    finally:
+        srv.shutdown()
+
+
+def tenancy_recorders(armed: dict) -> dict:
+    """A recorder for K1's first call while the data jobs solve (its
+    groups' feasibility masked to the plugin's nodes)."""
+    return {"solve_placement_compact": Recorder(
+        solver_mod, "solve_placement_compact",
+        keep=lambda a: armed["on"])}
+
+
+def masked_nodes(args) -> int:
+    """Nodes any live group of a recorded K1 call may place on: the union
+    of their feasibility rows (the spread splits a job into a sub-group
+    a datacenter; only dc1's has feasible nodes under the CSI screen)."""
+    cap, _, _, counts, feas, fidx = args[:6]
+    bits = np.unpackbits(feas.cpu().numpy(), axis=1)[:, :cap.shape[0]]
+    live = (counts > 0).nonzero().flatten().cpu().numpy()
+    rows = fidx.cpu().numpy()[live]
+    return int(bits[rows].any(axis=0).sum())
+
+
+def tenancy_scenario(device: str, cfg: dict, on_step, armed=None) -> dict:
+    """The tenancy steps at c2m's width through the Server's endpoints,
+    on a Server with the pipelined GPU batch worker (batches of
+    SERVER_BATCH) and its watcher threads (the deployment watcher, the
+    node drainer, the volume watcher, the periodic dispatcher, the GC
+    timer) running, one EventTap held across the phase. The launch
+    counters are zeroed just before the first registration and read
+    after the last step. No client heartbeats: the heartbeat wheel is
+    switched off once the fleet is registered (the other server phases
+    never arm it). Returns the server (still running), the launch
+    counts and each step's numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.metrics import Registry
+    from nomad_tpu_torch.server import Server
+
+    metrics._install_registry(Registry())
+    kit = port_kit()
+    nodes = with_plugin(c2m_nodes(cfg["nodes"]), compute_node_class)
+    srv = Server(use_tpu_batch_worker=True,
+                 scheduler_config=SchedulerConfig(device=device))
+    srv.tpu_worker.batch_size = SERVER_BATCH
+    t = time.perf_counter()
+    srv.establish_leadership()
+    lead_s = time.perf_counter() - t
+    tap = EventTap(srv.event_broker)
+    drive = ThreadDrive(srv)
+    vw_ms = timed_passes(srv.volume_watcher)
+    steps: dict = {}
+    state = srv.state
+
+    def counts():
+        return {"solve_placement_compact": tk.solve_placement_compact
+                .launches, "scatter_rows": tk.scatter_rows.launches,
+                "scatter_rows_copy": tk.scatter_rows.launches_copy,
+                "scatter_add_rows": tk.scatter_add_rows.launches}
+
+    def step(name: str, fn) -> None:
+        trace.clear_finished()
+        n0 = tap.sync()
+        k0 = counts()
+        e0, w0 = len(state.evals()), len(vw_ms)
+        t = time.perf_counter()
+        extra = fn()
+        wall = time.perf_counter() - t
+        if device == "cuda":
+            torch.cuda.synchronize()
+        got = tap.events[n0:tap.sync()]
+        traces = batch_traces()
+        k1 = counts()
+        nums = {"wall_s": wall, "evals": len(state.evals()) - e0,
+                "batches": len(traces),
+                "launches": {k: k1[k] - k0[k] for k in k1},
+                "events": by_topic(got),
+                "events_by_type": {tp: by_type(got, tp)
+                                   for tp in EVENT_TOPICS},
+                "volume_watcher": pass_stats(vw_ms[w0:]),
+                "spans_ms": span_sums_ms(traces), **extra}
+        steps[name] = nums
+        shown = {k: v for k, v in nums.items() if k != "events_by_type"}
+        on_step(f"tenancy.{name}", wall, **shown)
+
+    tk.reset_launch_counts()
+    try:
+        step("setup", lambda: dict(
+            ten_setup(srv, kit, nodes, make_job, cfg, led=True),
+            establish_leadership_s=lead_s))
+        srv.heartbeaters.set_enabled(False)
+        step("volumes", lambda: ten_volumes(
+            srv, kit, make_job, cfg, drive,
+            on_masked=(lambda on: armed.update(on=on)) if armed is not None
+            else None))
+        step("jobs", lambda: ten_jobs(srv, kit, make_job, cfg, drive))
+        step("services", lambda: ten_services(srv, kit, cfg, drive))
+        step("secrets", lambda: ten_secrets(srv, kit, make_job, cfg, drive))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = counts()
+        check_events(steps, cfg["nodes"], cfg)
+    finally:
+        tap.close()
+    live = (cfg["data_jobs"] * cfg["count"] + 1
+            + (cfg["jobs"] - 2) * cfg["count"] + cfg["scale_to"]
+            + cfg["vault_count"])
+    check_server_state(srv, live)
+    return {"srv": srv, "launches": launches, "steps": steps,
+            "counters": metrics.snapshot()["counters"], "live": live,
+            "events": len(tap.events),
+            "volume_watcher": pass_stats(vw_ms)}
+
+
+def check_tenancy_run(res) -> None:
+    """No device failover or failed batch, the worker's resident tensors
+    on cuda:0, K1 launched in the volumes and the jobs steps, K2 at
+    least once."""
+    srv, c = res["srv"], res["counters"]
+    check(c.get("nomad.worker.device_failover", 0) == 0,
+          "tenancy: a device failover")
+    check(c.get("nomad.worker.invoke.failed", 0) == 0,
+          "tenancy: a batch failed to solve or commit")
+    cuda0 = torch.device("cuda", 0)
+    r = srv.tpu_worker._resident
+    check(r is not None and r._cap_dev.device == cuda0
+          and r._used_dev.device == cuda0,
+          "tenancy: the worker's resident tensors are not on cuda:0")
+    for name in ("volumes", "jobs"):
+        n = res["steps"][name]["launches"]["solve_placement_compact"]
+        check(n >= 1, f"tenancy.{name}: K1 launched {n} times")
+    check(res["launches"]["scatter_rows"] >= 1,
+          "tenancy: K2 was not launched")
 
 
 # ---------------------------------------------------------------------------
@@ -3727,8 +4530,9 @@ def main() -> int:
     # 6. the server's scheduling pipeline at c2m's width: c2m's 100 jobs
     #    through Server.job_register, then the roll wave, launch counters
     #    zeroed just before the first register and read after the roll;
-    #    then the same 100 jobs with pipeline=False, one injected device
-    #    failover, and a system job placed on a new node
+    #    then one injected device failover, a system job placed on a
+    #    new node, and the first SERVER_OVERLAP_JOBS jobs serial and
+    #    pipelined
     from nomad_tpu_torch import native
 
     def on_server(name, seconds, **kw):
@@ -3763,7 +4567,8 @@ def main() -> int:
         srv.shutdown()
     del sres, srv
     t0 = time.perf_counter()
-    phase("server.overlap", t0, **server_overlap("cuda", 10000, 100, 1000))
+    phase("server.overlap", t0, **server_overlap(
+        "cuda", 10000, SERVER_OVERLAP_JOBS, 1000))
 
     # 7. the solver pool: c2m's jobs and the roll wave through the leader's
     #    Server, every batch solved by one of two warm members over real
@@ -3840,7 +4645,43 @@ def main() -> int:
         lres["srv"].shutdown()
     del lres
 
-    # 9. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 9. the tenancy and cluster tables at c2m's width through the
+    #    Server's endpoints: the fleet through the node-register batcher,
+    #    namespaces and the C1 refusal, ACL, CSI volumes with their
+    #    claims and the volume watcher, scaling policies, services with
+    #    the watch hub, secrets and Vault task tokens, the event stream
+    #    held across; launch counters zeroed just before the first
+    #    registration and read after the last step
+    t_ten = time.perf_counter()
+    armed = {"on": False}
+    trec = tenancy_recorders(armed)
+    trace.set_enabled(True)
+    try:
+        tres = tenancy_scenario("cuda", TEN, on_server, armed)
+    finally:
+        trace.set_enabled(False)
+        for r in trec.values():
+            r.restore()
+    ten_launches = tres["launches"]
+    try:
+        check(all(t.is_cuda for r in trec.values() for t in r.tensors),
+              "a tensor of the tenancy path is on the host")
+        check_tenancy_run(tres)
+        k1_first = trec["solve_placement_compact"].first
+        check(k1_first is not None, "no masked K1 call recorded")
+        masked = masked_nodes(k1_first[0])
+        plugin_nodes = tres["steps"]["volumes"]["plugin_nodes"]
+        check(masked == plugin_nodes,
+              f"the data jobs' K1 call may place on {masked} nodes, "
+              f"want the plugin's {plugin_nodes}")
+        phase("tenancy", t_ten, launches=ten_launches, events=tres["events"],
+              live_allocs=tres["live"], masked_k1_nodes=masked,
+              volume_watcher=tres["volume_watcher"])
+    finally:
+        tres["srv"].shutdown()
+    del tres
+
+    # 10. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -3853,7 +4694,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 10. replay each path's calls against the twins, and time them
+    # 11. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -3882,13 +4723,21 @@ def main() -> int:
         life_held["scatter_rows_copy"]
     kernels[names.index("scatter_rows")]["lifecycle_launches_copy"] = \
         life_launches["scatter_rows_copy"]
+    ten_held = replay_server(trec, ten_launches)
+    ten_held["solve_placement_compact"]["masked_nodes"] = masked
+    for k in kernels:
+        k["tenancy_launches"] = ten_launches.get(k["name"], 0)
+    kernels[names.index("solve_placement_compact")]["tenancy"] = \
+        ten_held["solve_placement_compact"]
+    kernels[names.index("scatter_rows")]["tenancy_launches_copy"] = \
+        ten_launches["scatter_rows_copy"]
     phase("replay", t0)
 
-    # 11. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    # 12. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
     #    bench.py's preempt config and its drain config, its pipeline
     #    config through the batch worker driven by hand, and the
-    #    lifecycle's five steps at 200 nodes driven by hand: card == CPU
-    #    twins
+    #    lifecycle's five steps and the tenancy steps at 200 nodes driven
+    #    by hand: card == CPU twins
     t0 = time.perf_counter()
     small_gpu = three_waves("cuda", 200, 8, 200, 2)
     small_cpu = three_waves("cpu", 200, 8, 200, 2)
@@ -3956,6 +4805,13 @@ def main() -> int:
               f"lifecycle: card and CPU twins differ in {key}")
     check(any(c and a for _, c, a, _ in life_gpu["verdicts"]),
           "lifecycle: no batch chained")
+    # the tenancy steps at TEN_SMALL: 200 nodes, jobs of 50
+    ten_nodes = with_plugin(c2m_nodes(TEN_SMALL["nodes"]), compute_node_class)
+    ten_gpu = tenancy_small("cuda", ten_nodes)
+    ten_cpu = tenancy_small("cpu", ten_nodes)
+    for key in ten_gpu:
+        check(ten_gpu[key] == ten_cpu[key],
+              f"tenancy: card and CPU twins differ in {key}")
     phase("small", t0, allocs_compared=len(small_gpu["placed"]),
           mesh_allocs_compared=len(mesh_gpu["placed"]),
           preempt_placed=len(pre_gpu["placed"]),
@@ -3969,7 +4825,12 @@ def main() -> int:
           lifecycle_deployments=len(life_gpu["deployments"]),
           lifecycle_drain_passes=[sum(n for _, n in p)
                                   for p in life_gpu["drain_passes"]],
-          lifecycle_batches=len(life_gpu["verdicts"]))
+          lifecycle_batches=len(life_gpu["verdicts"]),
+          tenancy_allocs_compared=len(ten_gpu["placed"]),
+          tenancy_claims_compared=sum(len(c) for c in
+                                      ten_gpu["claims"].values()),
+          tenancy_events_compared=sum(len(b) for _, b in ten_gpu["events"]),
+          tenancy_batches=len(ten_gpu["verdicts"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

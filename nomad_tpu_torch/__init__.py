@@ -5,11 +5,18 @@ Hopper cards. It keeps ``nomad_tpu``'s layout and names so each module's
 counterpart is found at the same path:
 
   structs/        shared vocabulary (Job, Node, Allocation, Evaluation, Plan)
-  state/          in-memory state store with the per-node usage aggregate
+  state/          in-memory state store with the per-node usage aggregate,
+                  and its writes as stream events (state/events.py)
   scheduler/      reconcile, feasibility, and the batch solver (scheduler/gpu)
   server/         the scheduling pipeline, the job lifecycle (plan, the
                   deployment watcher, the node drainer, periodic jobs),
-                  gossip membership, the solver pool
+                  tenancy and the cluster tables (namespaces, ACL, volumes
+                  and the volume watcher, services, secrets and task
+                  tokens, search, the alloc watch hub), gossip
+                  membership, the solver pool
+  acl/            ACL policies and tokens, the policy DSL, the compiled ACL
+  stream/         the event broker
+  jobspec/        the HCL2-subset parser (the policy DSL parses with it)
   connect/        the Connect admission hook and its sidecar relay
   rpc/            the TCP fabric the pool and membership speak over
   mock/ testing/  factories and the in-memory scheduling harness

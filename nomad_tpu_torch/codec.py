@@ -55,6 +55,11 @@ def _registry() -> dict[str, type]:
         # a non-dataclass store type that rides in state snapshots; it
         # round-trips through its __dict__
         _REGISTRY[JobSummary.__name__] = JobSummary
+        # the ACL tables' rows ride in state snapshots too
+        from .acl.structs import ACLPolicy, ACLToken
+
+        _REGISTRY[ACLPolicy.__name__] = ACLPolicy
+        _REGISTRY[ACLToken.__name__] = ACLToken
     return _REGISTRY
 
 

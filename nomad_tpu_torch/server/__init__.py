@@ -8,7 +8,9 @@ apply) → the state store. Host code: nothing here imports torch; the
 batch worker reaches the card through ``scheduler.gpu`` at its first
 solve. The job lifecycle's leader subsystems (:class:`DeploymentsWatcher`,
 :class:`NodeDrainer`, :class:`PeriodicDispatch`) and ``job_plan`` are host
-code too.
+code too, as are the tenancy and cluster tables' pieces: the
+:class:`VolumeWatcher`, the :class:`AllocWatchHub`, the
+:class:`NodeRegisterBatcher` and ``search``.
 """
 
 from .blocked_evals import BlockedEvals
@@ -21,5 +23,8 @@ from .periodic import CronSpec, PeriodicDispatch, next_launch
 from .plan_apply import PlanApplier, evaluate_node_plan, evaluate_plan
 from .plan_queue import PlanQueue
 from .raft import FSM, InmemLog
-from .server import Server
+from .search import fuzzy_search, prefix_search
+from .server import ConflictError, NodeRegisterBatcher, Server
+from .volume_watcher import VolumeWatcher
+from .watch_hub import AllocWatchHub
 from .worker import TPUBatchWorker, Worker, WorkerPlanner

@@ -1,8 +1,7 @@
 """Core scheduler: internal `_core` evals for garbage collection.
 
-Port of ``nomad_tpu/server/core_sched.py``, cut to the passes over the
-tables the port's store holds (evals, jobs, nodes, deployments); the
-service-registration and ACL-token sweeps stay with the reference.
+Port of ``nomad_tpu/server/core_sched.py``: the eval, job, node,
+deployment, service-registration and expired-ACL-token passes.
 Reference: nomad/core_sched.go — the leader enqueues `_core` evals on a
 timer (leader.go schedulePeriodic); a worker dequeues them like any other
 eval and dispatches on the eval's JobID (core_sched.go:47-57): eval GC, job
@@ -28,6 +27,8 @@ CORE_JOB_EVAL_GC = "eval-gc"
 CORE_JOB_JOB_GC = "job-gc"
 CORE_JOB_NODE_GC = "node-gc"
 CORE_JOB_DEPLOYMENT_GC = "deployment-gc"
+CORE_JOB_SERVICE_GC = "service-gc"
+CORE_JOB_TOKEN_GC = "token-gc"
 CORE_JOB_FORCE_GC = "force-gc"
 
 # Reference defaults (nomad/config.go): EvalGCThreshold 1h, JobGCThreshold
@@ -72,11 +73,17 @@ class CoreScheduler:
             self.node_gc()
         elif kind == CORE_JOB_DEPLOYMENT_GC:
             self.deployment_gc()
+        elif kind == CORE_JOB_SERVICE_GC:
+            self.service_gc()
+        elif kind == CORE_JOB_TOKEN_GC:
+            self.token_gc()
         elif kind == CORE_JOB_FORCE_GC:
             self.eval_gc(force=True)
             self.job_gc(force=True)
             self.deployment_gc(force=True)
             self.node_gc(force=True)
+            self.service_gc()
+            self.token_gc()
         else:
             raise ValueError(f"unknown core job {ev.job_id!r}")
 
@@ -180,3 +187,32 @@ class CoreScheduler:
         if gc:
             self.server.raft_apply("deployment_delete", gc)
         return len(gc)
+
+    def token_gc(self) -> int:
+        """Delete expired ACL tokens (reference: 1.4's
+        ExpiredACLTokenGC; ours come from task-derived secrets tokens)."""
+        from ..structs import now_ns as _now
+
+        expired = self.snapshot.expired_acl_tokens(_now())
+        if expired:
+            self.server.raft_apply(
+                "acl_token_delete", [t.accessor_id for t in expired]
+            )
+        return len(expired)
+
+    def service_gc(self) -> int:
+        """Drop service registrations whose alloc is terminal or gone —
+        the sweep behind client-side deregistration for clients that died
+        without deregistering (reference: the native-SD analog of
+        core_sched's one-shot cleanups)."""
+        orphaned: list[str] = []
+        for ns_row in self.snapshot.service_names():
+            for reg in self.snapshot.service_registrations(
+                ns_row["namespace"], ns_row["service_name"]
+            ):
+                alloc = self.snapshot.alloc_by_id(reg.alloc_id)
+                if alloc is None or alloc.terminal_status():
+                    orphaned.append(reg.id)
+        if orphaned:
+            self.server.raft_apply("service_delete", orphaned)
+        return len(orphaned)

@@ -1,15 +1,15 @@
 """Replicated log + FSM layer.
 
 Port of ``nomad_tpu/server/raft.py`` (reference: nomad/fsm.go +
-hashicorp/raft), cut to the apply types the scheduling pipeline and the
-job lifecycle write: node (with drain and eligibility), job, eval, alloc
+hashicorp/raft): node (with drain and eligibility), job, eval, alloc
 (with desired transitions), plan-result, deployment (upsert, status,
-promotion, alloc health) and summary-reconcile entries. ACL, namespace,
-volume, service, secret, scaling-event, operator-config and
-snapshot-restore entries stay with the reference until their modules are
-ported. `InmemLog` is a
-single-node ordered log whose apply path runs through the same FSM
-dispatch a replicated deployment would use.
+promotion, alloc health), summary-reconcile, ACL, namespace, volume
+(with the watcher's claim release), service, secret, scaling-event and
+operator-config entries. The snapshot-restore entry and the log's
+``entries_since`` / ``snapshot_bytes`` need a log that keeps entries,
+and come with replication. `InmemLog` is a single-node ordered log whose
+apply path runs through the same FSM dispatch a replicated deployment
+would use.
 
 Every state mutation in the server goes through `raft_apply(type, payload)`
 — nothing writes the state store directly — exactly the reference's
@@ -56,6 +56,7 @@ class FSM:
         self.on_node_update: Optional[Callable] = None
         self.on_alloc_client_update: Optional[Callable] = None
         self.on_job_upsert: Optional[Callable] = None  # periodic tracking
+        self.on_volume_release: Optional[Callable] = None  # blocked-eval poke
         self._handlers = {
             "noop": lambda index, payload: None,  # leader election barrier
             "node_register": self._apply_node_register,
@@ -85,6 +86,38 @@ class FSM:
             "batch_node_drain_update": self._apply_batch_drain,
             "summaries_reconcile": lambda i, p: (
                 self.state.reconcile_job_summaries(i)
+            ),
+            "acl_policy_upsert": lambda i, p: self.state.upsert_acl_policies(i, p),
+            "acl_policy_delete": lambda i, p: self.state.delete_acl_policies(i, p),
+            "acl_token_upsert": lambda i, p: self.state.upsert_acl_tokens(i, p),
+            "acl_token_delete": lambda i, p: self.state.delete_acl_tokens(i, p),
+            "namespace_upsert": lambda i, p: self.state.upsert_namespace(i, p),
+            "namespace_delete": lambda i, p: self.state.delete_namespace(i, p),
+            "volume_register": lambda i, p: self.state.upsert_volume(i, p),
+            "volume_deregister": lambda i, p: self.state.delete_volume(
+                i, p[0], p[1]
+            ),
+            "volume_claim_release": self._apply_volume_release,
+            "service_upsert": lambda i, p: (
+                self.state.upsert_service_registrations(i, p)
+            ),
+            "service_delete": lambda i, p: (
+                self.state.delete_service_registrations(i, p)
+            ),
+            "service_delete_alloc": lambda i, p: (
+                self.state.delete_services_by_alloc(i, p)
+            ),
+            "secret_upsert": lambda i, p: self.state.upsert_secret(i, p),
+            "job_scaling_event": lambda i, p: (
+                self.state.upsert_scaling_event(
+                    i, p["namespace"], p["job_id"], p["group"], p["event"]
+                )
+            ),
+            "operator_config_upsert": lambda i, p: (
+                self.state.upsert_operator_config(i, p[0], p[1])
+            ),
+            "secret_delete": lambda i, p: self.state.delete_secret(
+                i, p[0], p[1]
             ),
         }
 
@@ -237,6 +270,24 @@ class FSM:
         ev = payload.get("eval")
         if ev is not None and self.on_eval_update:
             self.on_eval_update([ev])
+
+    def _apply_volume_release(self, index: int, payload) -> None:
+        if isinstance(payload, dict):
+            # scoped form (volume detach): one volume only
+            released = self.state.release_volume_claims_scoped(
+                index,
+                payload["namespace"],
+                payload["volume_id"],
+                list(payload["alloc_ids"]),
+            )
+        else:
+            released = self.state.release_volume_claims(
+                index, list(payload)
+            )
+        if released and self.on_volume_release:
+            # A freed claim can make a blocked single-writer job feasible
+            # again; the leader re-runs blocked evals.
+            self.on_volume_release()
 
     def _apply_batch_drain(self, index: int, payload) -> None:
         # {node_id: DrainStrategy|None}

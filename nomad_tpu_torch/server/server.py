@@ -1,26 +1,29 @@
 """The server: replicated state + leader-only scheduling subsystems.
 
-Port of ``nomad_tpu/server/server.py``, cut to the scheduling pipeline
-and the job lifecycle. The pipeline: the FSM and its log, the eval broker, blocked evals, the heartbeat
-wheel, the plan queue and applier, and the workers, wired as the
-reference wires them (reference: nomad/server.go, nomad/leader.go:224
-establishLeadership, nomad/node_endpoint.go, nomad/job_endpoint.go).
+Port of ``nomad_tpu/server/server.py``. The pipeline: the FSM and its
+log, the eval broker, blocked evals, the heartbeat wheel, the plan queue
+and applier, and the workers, wired as the reference wires them
+(reference: nomad/server.go, nomad/leader.go:224 establishLeadership,
+nomad/node_endpoint.go, nomad/job_endpoint.go).
 ``use_tpu_batch_worker=True`` puts the service and batch evals on the
 TPUBatchWorker, which solves them on the card; system, sysbatch and
 ``_core`` evals go to a plain Worker (a ``_core`` eval runs the
 CoreScheduler's GC passes; the GC timer and ``force_gc`` enqueue them).
 The job lifecycle rides on it: job admission (Connect sidecar injection,
-the memory-oversubscription gate, the cron check, the broker's
-saturation guard), job plan, scale, revert, dispatch and force-evaluate,
+the memory-oversubscription gate, the Vault policy allowlist, the cron
+check, the broker's saturation guard, the namespace check), job plan,
+scale (with its scaling-event log), revert, dispatch and force-evaluate,
 alloc stop, the deployment endpoints with the deployment watcher, node
 drain and eligibility with the node drainer, the periodic dispatcher,
-and the GC timer (its eval, job, node and deployment passes). ACL,
-secrets (and with them the Vault policy allowlist at admission),
-namespaces (a job's namespace is not checked against a namespace table),
-volumes and the volume watcher, services (and the GC timer's service and
-token sweeps), scaling policies and the scaling-event log, the watch
-hub, the node-register batcher, the metrics providers and the event
-stream stay with the reference.
+and the GC timer. Tenancy and the cluster tables: namespaces (``default``
+bootstrapped at leadership), ACL policies and tokens with
+``resolve_token``, CSI and host volumes with their claims and the volume
+watcher, service registrations, secrets and Vault task tokens, the event
+stream (every store write published to ``event_broker``), the alloc
+watch hub behind ``get_client_allocs`` and the node-register batcher.
+The metrics providers (they feed the agent's ``/v1/metrics``), the
+replay barrier and ``set_raft_applier`` (they come with replication)
+stay with the reference.
 
 Every mutation flows through raft_apply. The endpoint methods here are
 what an RPC layer would call.
@@ -36,6 +39,8 @@ from typing import Optional
 from .. import blackbox, metrics, trace
 from ..scheduler.context import SchedulerConfig
 from ..state import StateStore
+from ..state.events import wire_events
+from ..stream import EventBroker
 from ..structs import (
     Allocation,
     DrainStrategy,
@@ -46,6 +51,7 @@ from ..structs import (
 )
 from ..structs.structs import (
     ALLOC_CLIENT_STATUS_FAILED,
+    DEFAULT_NAMESPACE,
     EVAL_STATUS_BLOCKED,
     EVAL_STATUS_PENDING,
     EVAL_TRIGGER_JOB_DEREGISTER,
@@ -68,9 +74,134 @@ from .periodic import PeriodicDispatch
 from .plan_apply import PlanApplier
 from .plan_queue import PlanQueue
 from .raft import FSM, InmemLog
+from .volume_watcher import VolumeWatcher
+from .watch_hub import AllocWatchHub
 from .worker import TPUBatchWorker, Worker
 
 logger = logging.getLogger("nomad_tpu_torch.server")
+
+class ConflictError(Exception):
+    """An expected operational rejection (HTTP 400-class), e.g. re-running
+    ACL bootstrap. Distinct from PermissionError so filesystem EACCES
+    never masquerades as a client error."""
+
+
+class _RegisterBox:
+    """One submitted registration's completion slot."""
+
+    __slots__ = ("event", "error", "fallback")
+
+    def __init__(self) -> None:
+        self.event = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.fallback = False
+
+
+class NodeRegisterBatcher:
+    """Coalesces concurrent Node.register writes into shared
+    ``node_register_batch`` raft entries.
+
+    A mass reconnect (partition heals, fleet restart) lands thousands of
+    registrations in a few seconds; committing each as its own raft
+    entry serializes the storm through the log at one fsync-equivalent
+    apiece. The batcher holds each registration for a ~5ms coalescing
+    window and commits everything that arrived as ONE entry (bounded at
+    ``max_batch``), so the log cost of a reconnect storm is
+    O(storm / batch) instead of O(storm). Callers still block until
+    their batch commits — acknowledgement semantics are unchanged.
+
+    Leader-only lifecycle: started at establish-leadership, stopped at
+    revoke. ``submit`` returns False when not running (caller falls back
+    to a direct ``node_register`` apply) so followers applying forwarded
+    writes and pre-leadership tests never deadlock on a dead worker.
+    """
+
+    def __init__(
+        self, raft_apply, window_s: float = 0.005, max_batch: int = 256
+    ) -> None:
+        self.raft_apply = raft_apply
+        self.window_s = window_s
+        self.max_batch = max_batch
+        self._cv = threading.Condition(threading.Lock())
+        self._queue: list[tuple[object, _RegisterBox]] = []
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        with self._cv:
+            if self._running:
+                return
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._run, name="node-register-batcher", daemon=True
+            )
+            self._thread.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            if not self._running:
+                return
+            self._running = False
+            drained, self._queue = self._queue, []
+            thread, self._thread = self._thread, None
+            self._cv.notify_all()
+        # anything still queued at revoke-leadership falls back to the
+        # caller's direct apply path (which will fail NotLeader exactly
+        # as an unbatched write would have)
+        for _node, box in drained:
+            box.fallback = True
+            box.event.set()
+        if thread is not None:
+            thread.join(timeout=5)
+
+    def submit(self, node) -> bool:
+        """Queue a registration and block until its batch commits.
+        True = committed via a batch entry; False = batcher not running,
+        caller must apply directly. Re-raises the batch's raft error."""
+        with self._cv:
+            if not self._running:
+                return False
+            box = _RegisterBox()
+            self._queue.append((node, box))
+            self._cv.notify()
+        box.event.wait()
+        if box.fallback:
+            return False
+        if box.error is not None:
+            raise box.error
+        return True
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while self._running and not self._queue:
+                    self._cv.wait()
+                if not self._running:
+                    return
+            # coalescing window: let the rest of a concurrent burst
+            # arrive before cutting the batch (no locks held)
+            time.sleep(self.window_s)
+            with self._cv:
+                batch = self._queue[: self.max_batch]
+                del self._queue[: self.max_batch]
+            if not batch:
+                continue
+            nodes = [node for node, _box in batch]
+            err: Optional[BaseException] = None
+            try:
+                self.raft_apply("node_register_batch", nodes)
+            except BaseException as exc:  # propagate to every waiter
+                err = exc
+            else:
+                metrics.incr("nomad.fleet.node_raft_batches")
+                metrics.incr(
+                    "nomad.fleet.node_raft_coalesced", len(nodes)
+                )
+            for _node, box in batch:
+                box.error = err
+                box.event.set()
+
+
 
 
 class Server:
@@ -89,6 +220,10 @@ class Server:
         self.state = StateStore()
         self.fsm = FSM(self.state)
         self.log = InmemLog(self.fsm)
+        # Event stream backbone (reference nomad/stream/event_broker.go,
+        # wired from state txns via nomad/state/events.go).
+        self.event_broker = EventBroker()
+        wire_events(self.state, self.event_broker)
         self.scheduler_config = scheduler_config or SchedulerConfig()
 
         self.eval_broker = EvalBroker()
@@ -106,8 +241,18 @@ class Server:
             on_expire_batch=self._invalidate_heartbeat_batch,
         )
         self.heartbeaters.node_count_fn = lambda: len(self.state.nodes())
+        # Event-driven alloc-watch fan-out (watch_hub.py): blocking
+        # client alloc watches wake per-node instead of per-write.
+        # Constructed here (not at establish-leadership) because
+        # followers serve Node.get_client_allocs from their replicas.
+        self.watch_hub = AllocWatchHub(self.state)
+        # Mass-reconnect registration coalescer: concurrent
+        # Node.register writes share node_register_batch raft entries
+        # (leader-only; started at establish-leadership).
+        self.register_batcher = NodeRegisterBatcher(self.raft_apply)
         self.deployment_watcher = DeploymentsWatcher(self.state, self.raft_apply)
         self.drainer = NodeDrainer(self.state, self.raft_apply)
+        self.volume_watcher = VolumeWatcher(self.state, self.raft_apply)
         self.periodic = PeriodicDispatch(self.state, self.raft_apply)
         # Threshold GC cadence (reference leader.go schedulePeriodic: one
         # timer per GC kind, 5m default).
@@ -152,6 +297,11 @@ class Server:
                     )
                 )
 
+        # Token→ACL resolution cache, invalidated by acl table index
+        # (reference nomad/acl.go aclCache).
+        self._acl_cache: dict[str, tuple[int, object, int]] = {}
+        self._acl_bootstrap_lock = threading.Lock()
+
         # Single writer draining unblocked-eval re-queues (see
         # _requeue_unblocked for why this must be async).
         import queue as _queue
@@ -167,6 +317,7 @@ class Server:
         self.fsm.on_node_update = self._on_node_update
         self.fsm.on_alloc_client_update = self._on_alloc_client_update
         self.fsm.on_job_upsert = self._on_job_upsert
+        self.fsm.on_volume_release = self.blocked_evals.unblock_all
         self._leader = False
 
     # -- lifecycle -----------------------------------------------------
@@ -177,6 +328,7 @@ class Server:
         self.plan_queue.set_enabled(True)
         self.blocked_evals.set_enabled(True)
         self.heartbeaters.set_enabled(True)
+        self.register_batcher.start()
         self.plan_applier.start()
         for w in self.workers:
             w.start()
@@ -184,6 +336,7 @@ class Server:
             self.tpu_worker.start()
         self.deployment_watcher.start()
         self.drainer.start()
+        self.volume_watcher.start()
         self.periodic.start()
         # Fresh Event per incarnation (see Worker.start): a thread that
         # outlives join(timeout) polls its own event and still exits.
@@ -206,6 +359,12 @@ class Server:
             )
         except Exception:
             logger.exception("heartbeat timer initialization failed")
+        # Bootstrap the default namespace (reference leader.go
+        # establishLeadership creates it so it always lists).
+        try:
+            self._ensure_namespace(DEFAULT_NAMESPACE)
+        except Exception:
+            logger.exception("default namespace bootstrap failed")
 
     def revoke_leadership(self) -> None:
         self._leader = False
@@ -215,6 +374,7 @@ class Server:
             self._gc_thread = None
         self.deployment_watcher.stop()
         self.drainer.stop()
+        self.volume_watcher.stop()
         self.periodic.stop()
         for w in self.workers:
             w.stop()
@@ -223,6 +383,7 @@ class Server:
         if self.tpu_worker:
             self.tpu_worker.stop()
         self.plan_applier.stop()
+        self.register_batcher.stop()
         self.eval_broker.set_enabled(False)
         self.plan_queue.set_enabled(False)
         self.blocked_evals.set_enabled(False)
@@ -230,6 +391,7 @@ class Server:
 
     def shutdown(self) -> None:
         self.revoke_leadership()
+        self.watch_hub.stop()
         self._unblock_q.put(None)
 
     def _restore_evals(self) -> None:
@@ -340,9 +502,7 @@ class Server:
     def validate_job_submission(self, job: Job) -> Job:
         """The register-time validation front-half on a COPY:
         canonicalize, Connect injection, struct validation,
-        oversubscription gate, scaling bounds. (The reference also checks
-        vault policies against the operator allowlist; with no allowlist
-        set, its default, that check admits everything.)"""
+        oversubscription gate, vault allowlist, scaling bounds."""
         job = job.copy()
         job.canonicalize()
         # Connect admission: inject sidecar tasks/ports/mesh services
@@ -353,7 +513,15 @@ class Server:
         inject_connect_sidecars(job)
         job.validate()
         self.apply_memory_oversubscription_gate(job)
+        # Fail fast on vault policies outside the operator allowlist
+        # (reference job_endpoint.go Register → validateJob vault check);
+        # derive_task_token re-checks at mint time.
         for tg in job.task_groups:
+            for task in tg.tasks:
+                if task.vault:
+                    self._check_vault_policies(
+                        list(task.vault.get("policies", []))
+                    )
             # scaling stanza sanity at SUBMIT time (reference
             # ScalingPolicy.Validate): a min>max or out-of-bounds count
             # would make the group permanently unscalable
@@ -399,6 +567,7 @@ class Server:
         entry."""
         self.check_eval_admission(job.namespace)
         job = self.validate_job_submission(job)
+        self._ensure_namespace(job.namespace)
         if job.is_periodic():
             # A malformed cron spec must be rejected at the API, not fire
             # wild from the dispatcher (reference periodic.go Add validates).
@@ -420,6 +589,200 @@ class Server:
             )
         self.raft_apply("job_register", (job, ev))
         return ev.id if ev else ""
+
+    # -- namespace endpoint --------------------------------------------
+
+    def namespace_upsert(self, ns) -> None:
+        """Reference: nomad/namespace_endpoint.go UpsertNamespaces."""
+        ns.validate()
+        self.raft_apply("namespace_upsert", ns)
+
+    def namespace_delete(self, name: str) -> None:
+        # pre-validate against current state for a friendly error; the
+        # FSM re-checks under the raft serialization point
+        if name == DEFAULT_NAMESPACE:
+            raise ValueError("the default namespace cannot be deleted")
+        if self.state.namespace_by_name(name) is None:
+            raise KeyError(f"namespace {name} not found")
+        # The replicated apply loop logs-and-continues on FSM errors, so
+        # the user-facing in-use refusal must happen here; the store
+        # re-checks authoritatively under the raft serialization point.
+        # Terminal jobs pending GC don't count (same rule as the store).
+        from ..structs.structs import JOB_STATUS_DEAD
+
+        in_use = sum(
+            1
+            for j in self.state.jobs(name)
+            if not (j.stop or j.status == JOB_STATUS_DEAD)
+        ) + len(self.state.volumes(name))
+        if in_use:
+            raise ValueError(f"namespace {name} has {in_use} jobs/volumes")
+        self.raft_apply("namespace_delete", name)
+
+    def _ensure_namespace(self, namespace: str) -> None:
+        """Writes into a namespace require it to exist (reference
+        job_endpoint.go Register's namespace check). 'default' always
+        exists — bootstrapped on first use."""
+        if namespace == DEFAULT_NAMESPACE:
+            if self.state.namespace_by_name(namespace) is None:
+                from ..structs.structs import Namespace
+
+                self.raft_apply(
+                    "namespace_upsert",
+                    Namespace(name=DEFAULT_NAMESPACE,
+                              description="Default shared namespace"),
+                )
+            return
+        if self.state.namespace_by_name(namespace) is None:
+            raise ValueError(f"namespace {namespace!r} does not exist")
+
+    # -- volume endpoint -----------------------------------------------
+
+    def validate_volume(self, vol) -> None:
+        """Shared register/create validation — create must run this
+        BEFORE provisioning, or a rejected register would orphan the
+        freshly provisioned external storage."""
+        if not vol.id or not vol.name:
+            raise ValueError("volume requires id and name")
+        from ..structs.structs import (
+            VOLUME_ACCESS_MULTI_WRITER,
+            VOLUME_ACCESS_READ_ONLY,
+            VOLUME_ACCESS_SINGLE_WRITER,
+        )
+
+        valid_modes = (
+            VOLUME_ACCESS_SINGLE_WRITER,
+            VOLUME_ACCESS_MULTI_WRITER,
+            VOLUME_ACCESS_READ_ONLY,
+        )
+        if vol.access_mode not in valid_modes:
+            # a typo'd mode would silently behave as multi-writer
+            raise ValueError(
+                f"invalid access_mode {vol.access_mode!r}; "
+                f"one of {', '.join(valid_modes)}"
+            )
+
+    def volume_register(self, vol) -> None:
+        """Register (or update) a volume; claims survive updates
+        (reference csi_endpoint.go Register, reshaped for host volumes)."""
+        self.validate_volume(vol)
+        self._ensure_namespace(vol.namespace)
+        self.raft_apply("volume_register", vol)
+
+    def volume_deregister(self, namespace: str, vol_id: str) -> None:
+        vol = self.state.volume_by_id(namespace, vol_id)
+        if vol is None:
+            raise KeyError(f"volume {vol_id} not found")
+        if vol.claims:
+            raise ValueError(
+                f"volume {vol_id} has {len(vol.claims)} active claims"
+            )
+        self.raft_apply("volume_deregister", (namespace, vol_id))
+
+    # -- secrets (the embedded Vault analog) ---------------------------
+
+    def secret_upsert(self, entry) -> None:
+        if not entry.path or not entry.path.strip("/"):
+            raise ValueError("secret requires a path")
+        self.raft_apply("secret_upsert", entry)
+
+    def secret_delete(self, namespace: str, path: str) -> None:
+        if self.state.secret_by_path(namespace, path) is None:
+            raise KeyError(f"secret {path} not found")
+        self.raft_apply("secret_delete", (namespace, path))
+
+    DERIVED_TOKEN_TTL_S = 3600.0
+    # Operator allowlist for task-derivable policies (reference:
+    # vault stanza allowed_policies validation in nomad/vault.go — a job
+    # may only ask for policies the operator pre-approved; None = no
+    # restriction, matching the reference's default). Without this a
+    # submit-job token could mint itself any policy via a vault stanza.
+    vault_allowed_policies: Optional[list[str]] = None
+
+    def _check_vault_policies(self, policies: list[str]) -> None:
+        if self.vault_allowed_policies is None:
+            return
+        denied = [
+            p for p in policies if p not in self.vault_allowed_policies
+        ]
+        if denied:
+            raise PermissionError(
+                f"vault policies not in the operator allowlist: {denied}"
+            )
+
+    def derive_task_token(self, alloc_id: str, task_name: str) -> dict:
+        """Mint a TTL'd ACL token scoped to the task's vault.policies
+        (reference nomad/vault.go DeriveVaultToken via the Vault server;
+        here the token is a first-class cluster token the client renews).
+        Returns {"secret_id", "accessor_id", "ttl_s"}."""
+        from ..acl.structs import ACLToken
+
+        alloc = self.state.alloc_by_id(alloc_id)
+        if alloc is None:
+            raise KeyError(f"alloc {alloc_id} not found")
+        if alloc.terminal_status():
+            raise ValueError(f"alloc {alloc_id} is terminal")
+        job = alloc.job or self.state.job_by_id(alloc.namespace, alloc.job_id)
+        tg = job.lookup_task_group(alloc.task_group) if job else None
+        task = tg.lookup_task(task_name) if tg else None
+        if task is None:
+            raise KeyError(f"task {task_name} not in alloc {alloc_id}")
+        policies = list((task.vault or {}).get("policies", []))
+        self._check_vault_policies(policies)
+        token = ACLToken.new(
+            name=f"task-{alloc_id[:8]}-{task_name}", policies=policies
+        )
+        token.expiration_time_ns = now_ns() + int(
+            self.DERIVED_TOKEN_TTL_S * 1e9
+        )
+        self.raft_apply("acl_token_upsert", [token])
+        return {
+            "secret_id": token.secret_id,
+            "accessor_id": token.accessor_id,
+            "ttl_s": self.DERIVED_TOKEN_TTL_S,
+        }
+
+    def renew_task_token(self, accessor_id: str) -> float:
+        """Extend a derived token's TTL (reference vaultclient
+        RenewToken → Vault lease renewal)."""
+        token = self.state.acl_token_by_accessor(accessor_id)
+        if token is None:
+            raise KeyError("token not found")
+        if not token.expiration_time_ns:
+            raise ValueError("token has no TTL")
+        if token.expiration_time_ns < now_ns():
+            raise ValueError("token already expired")
+        renewed = token.copy()
+        renewed.expiration_time_ns = now_ns() + int(
+            self.DERIVED_TOKEN_TTL_S * 1e9
+        )
+        self.raft_apply("acl_token_upsert", [renewed])
+        return self.DERIVED_TOKEN_TTL_S
+
+    def services_register(self, regs: list) -> None:
+        """Upsert service registrations (reference:
+        service_registration_endpoint.go Upsert). The owning alloc must
+        exist — a late register from a restarting client for a GC'd alloc
+        would otherwise resurrect a ghost instance."""
+        for reg in regs:
+            if not reg.id or not reg.service_name or not reg.alloc_id:
+                raise ValueError(
+                    "service registration requires id, service_name, alloc_id"
+                )
+            alloc = self.state.alloc_by_id(reg.alloc_id)
+            if alloc is None:
+                raise KeyError(f"alloc {reg.alloc_id} not found")
+            if alloc.terminal_status():
+                # a late check-status upsert must not resurrect rows the
+                # service GC just swept
+                raise ValueError(f"alloc {reg.alloc_id} is terminal")
+        self.raft_apply("service_upsert", regs)
+
+    def services_deregister_alloc(self, alloc_id: str) -> int:
+        return self.raft_apply("service_delete_alloc", [alloc_id])
+
+    def services_deregister(self, ids: list[str]) -> int:
+        return self.raft_apply("service_delete", ids)
 
     def alloc_stop(self, alloc_id: str) -> str:
         """Stop one allocation and let the scheduler replace it
@@ -471,11 +834,25 @@ class Server:
                     f"count {count} outside scaling bounds [{lo}, {hi}] "
                     f"for group {group!r}"
                 )
+        prev = tg.count
         tg.count = count
-        # The reference also logs a scaling event (count, previous
-        # count, message) in its scaling-event table; that table comes
-        # with the scaling policies, so `message` is unused here.
-        return self.job_register(job)
+        eval_id = self.job_register(job)
+        self.raft_apply(
+            "job_scaling_event",
+            {
+                "namespace": namespace,
+                "job_id": job_id,
+                "group": group,
+                "event": {
+                    "Time": now_ns(),
+                    "Count": count,
+                    "PreviousCount": prev,
+                    "Message": message or "submitted via scale API",
+                    "EvalID": eval_id,
+                },
+            },
+        )
+        return eval_id
 
     def job_force_evaluate(self, namespace: str, job_id: str) -> str:
         """Create a new eval for the job (reference job_endpoint.go
@@ -550,7 +927,11 @@ class Server:
             node.status = NODE_STATUS_READY
         prev = self.state.node_by_id(node.id)
         was_ready = prev is not None and prev.ready()
-        self.raft_apply("node_register", node)
+        # Registration storms share node_register_batch raft entries;
+        # the direct path serves followers applying forwarded writes and
+        # anything running before leadership is established.
+        if not self.register_batcher.submit(node):
+            self.raft_apply("node_register", node)
         # A node that BECAME ready may unblock system jobs / blocked
         # evals (reference node_endpoint.go Register -> createNodeEvals).
         # A re-registration that didn't change readiness mints no evals:
@@ -837,6 +1218,83 @@ class Server:
 
     # -- GC (reference nomad/system_endpoint.go + leader.go) -----------
 
+    # -- ACL endpoint (reference nomad/acl_endpoint.go) -----------------
+
+    def acl_bootstrap(self):
+        """One-shot initial management token (reference ACL.Bootstrap).
+        The lock closes the check-then-act window between two concurrent
+        bootstrap requests (the reference uses a bootstrap-index CAS)."""
+        from ..acl.structs import ACLToken
+
+        with self._acl_bootstrap_lock:
+            if self.state.acl_has_management_token():
+                raise ConflictError("ACL bootstrap already done")
+            token = ACLToken.new(name="Bootstrap Token", type="management")
+            self.raft_apply("acl_token_upsert", [token])
+            return self.state.acl_token_by_accessor(token.accessor_id)
+
+    def acl_policy_upsert(self, policies) -> None:
+        for pol in policies:
+            pol.validate()
+        self.raft_apply("acl_policy_upsert", policies)
+
+    def acl_policy_delete(self, names: list[str]) -> None:
+        self.raft_apply("acl_policy_delete", names)
+
+    def acl_token_create(self, token):
+        from ..acl.structs import ACLToken
+
+        if not token.accessor_id:
+            fresh = ACLToken.new(
+                name=token.name, type=token.type, policies=token.policies
+            )
+            fresh.global_ = token.global_
+            token = fresh
+        token.validate()
+        self.raft_apply("acl_token_upsert", [token])
+        return self.state.acl_token_by_accessor(token.accessor_id)
+
+    def acl_token_delete(self, accessor_ids: list[str]) -> None:
+        self.raft_apply("acl_token_delete", accessor_ids)
+
+    def resolve_token(self, secret_id: str):
+        """secret → compiled ACL (reference nomad/acl.go ResolveToken).
+        None ⇒ anonymous. Cached per (secret, acl table index)."""
+        from ..acl import compile_policies, parse_policy
+        from ..acl.acl import MANAGEMENT_ACL
+        from ..state.store import TABLE_ACL_POLICIES, TABLE_ACL_TOKENS
+
+        if not secret_id:
+            return None
+        idx = self.state.table_index(TABLE_ACL_POLICIES, TABLE_ACL_TOKENS)
+        cached = self._acl_cache.get(secret_id)
+        if cached is not None and cached[0] == idx:
+            # Expiry is wall-clock, not table-index: check it from the
+            # cached entry so hits stay O(1) (the by-secret lookup scans
+            # the token table) without letting a compile outlive its TTL.
+            exp = cached[2]
+            if exp and exp < now_ns():
+                raise PermissionError("token expired")
+            return cached[1]
+        token = self.state.acl_token_by_secret(secret_id)
+        if token is None:
+            raise PermissionError("token not found")
+        if token.expiration_time_ns and token.expiration_time_ns < now_ns():
+            raise PermissionError("token expired")
+        if token.is_management():
+            acl = MANAGEMENT_ACL
+        else:
+            policies = []
+            for name in token.policies:
+                pol = self.state.acl_policy_by_name(name)
+                if pol is not None:
+                    policies.append(parse_policy(pol.rules))
+            acl = compile_policies(policies)
+        if len(self._acl_cache) > 512:
+            self._acl_cache.clear()
+        self._acl_cache[secret_id] = (idx, acl, token.expiration_time_ns)
+        return acl
+
     def force_gc(self) -> None:
         """System.GarbageCollect: enqueue a force-gc core eval."""
         self.eval_broker.enqueue(core_eval("force-gc"))
@@ -844,7 +1302,10 @@ class Server:
     def _gc_loop(self, stop: threading.Event) -> None:
         """Periodic threshold GC (reference leader.go schedulePeriodic)."""
         while not stop.wait(self.gc_interval_s):
-            for kind in ("eval-gc", "job-gc", "node-gc", "deployment-gc"):
+            for kind in (
+                "eval-gc", "job-gc", "node-gc", "deployment-gc",
+                "service-gc", "token-gc",
+            ):
                 self.eval_broker.enqueue(core_eval(kind))
 
     # -- client alloc updates -----------------------------------------
@@ -881,6 +1342,26 @@ class Server:
             )
         if evals:
             self.raft_apply("eval_update", evals)
+
+    # -- client pull (blocking query) ---------------------------------
+
+    def get_client_allocs(
+        self, node_id: str, min_index: int = 0, timeout_s: float = 5.0
+    ) -> tuple[list[Allocation], int]:
+        """Node.GetClientAllocs: blocking query on the node's allocs.
+
+        The seed implementation parked every watcher on the alloc
+        TABLE's condition — each plan apply woke all of them
+        (``notify_all``) and each re-scanned its node's allocs. The
+        watch hub wakes only the nodes a write actually touched; a
+        timeout still falls through to a fetch, so the returned
+        (allocs, index) contract is unchanged."""
+        from ..state.store import TABLE_ALLOCS
+
+        if min_index > 0:
+            self.watch_hub.wait_for_node(node_id, min_index, timeout_s)
+        index = self.state.wait_for_index([TABLE_ALLOCS], 0, 0.0)
+        return self.state.allocs_by_node(node_id), index
 
     # -- draining helpers ---------------------------------------------
 

@@ -36,16 +36,15 @@ from ..structs import (
 )
 from ..structs.placement_batch import AllocRow, PlacementBatch
 from ..structs.structs import (
-    DesiredTransition,
-    DrainStrategy,
-    NODE_SCHEDULING_ELIGIBLE,
-    NODE_SCHEDULING_INELIGIBLE,
     ALLOC_CLIENT_STATUS_COMPLETE,
     ALLOC_CLIENT_STATUS_FAILED,
     ALLOC_CLIENT_STATUS_LOST,
     ALLOC_CLIENT_STATUS_RUNNING,
     ALLOC_DESIRED_STATUS_EVICT,
     ALLOC_DESIRED_STATUS_STOP,
+    DEPLOYMENT_STATUS_CANCELLED,
+    DEPLOYMENT_STATUS_SUCCESSFUL,
+    DEPLOYMENT_STATUSES_TERMINAL,
     EVAL_STATUS_BLOCKED,
     EVAL_STATUS_PENDING,
     JOB_STATUS_DEAD,
@@ -53,6 +52,10 @@ from ..structs.structs import (
     JOB_STATUS_RUNNING,
     JOB_TYPE_SERVICE,
     JOB_TYPE_SYSTEM,
+    NODE_SCHEDULING_ELIGIBLE,
+    NODE_SCHEDULING_INELIGIBLE,
+    NODE_STATUS_DOWN,
+    DrainStrategy,
     now_ns,
 )
 
@@ -64,7 +67,17 @@ TABLE_JOB_SUMMARIES = "job_summary"
 TABLE_EVALS = "evals"
 TABLE_ALLOCS = "allocs"
 TABLE_DEPLOYMENTS = "deployment"
+TABLE_ACL_POLICIES = "acl_policy"
+TABLE_ACL_TOKENS = "acl_token"
 TABLE_VOLUMES = "volumes"
+TABLE_NAMESPACES = "namespaces"
+TABLE_SERVICES = "services"
+TABLE_SECRETS = "secrets"
+TABLE_OPERATOR = "operator_config"
+TABLE_SCALING_POLICIES = "scaling_policy"
+# (ns, job_id) -> {group: [event dicts]} — bounded scale-event journal
+# (reference state_store.go UpsertScalingEvent, JOB_TRACKED_SCALING_EVENTS)
+TABLE_SCALING_EVENTS = "scaling_event"
 ALL_TABLES = (
     TABLE_NODES,
     TABLE_JOBS,
@@ -73,7 +86,15 @@ ALL_TABLES = (
     TABLE_EVALS,
     TABLE_ALLOCS,
     TABLE_DEPLOYMENTS,
+    TABLE_ACL_POLICIES,
+    TABLE_ACL_TOKENS,
     TABLE_VOLUMES,
+    TABLE_NAMESPACES,
+    TABLE_SERVICES,
+    TABLE_SECRETS,
+    TABLE_OPERATOR,
+    TABLE_SCALING_POLICIES,
+    TABLE_SCALING_EVENTS,
 )
 
 # Secondary indexes: key -> {alloc_id: Allocation}. Kept under the same
@@ -148,6 +169,15 @@ def _usage_sub(ut: dict, node_id: str, c) -> None:
         ut[node_id] = nxt
 
 
+def rebuild_node_usage(allocs: dict) -> dict:
+    """Recompute the per-node usage table from scratch (restore path, and
+    the test invariant that the incremental table never drifts)."""
+    ut: dict[str, tuple[int, int, int, int]] = {}
+    for alloc in allocs.values():
+        _usage_add(ut, alloc.node_id, usage_contribution(alloc))
+    return ut
+
+
 def _alloc_priority(alloc) -> int:
     return alloc.job.priority if alloc.job is not None else 50
 
@@ -172,21 +202,11 @@ def _prio_sub(pt: dict, alloc, c) -> None:
         pt[p] = cur
 
 
-def rebuild_node_usage(allocs: dict) -> dict:
-    """Recompute the per-node usage table from scratch (restore path, and
-    the test invariant that the incremental table never drifts)."""
-    ut: dict[str, tuple[int, int, int, int]] = {}
-    for alloc in allocs.values():
-        _usage_add(ut, alloc.node_id, usage_contribution(alloc))
-    return ut
-
-
 def rebuild_prio_counts(allocs: dict) -> dict:
     pt: dict[int, int] = {}
     for alloc in allocs.values():
         _prio_add(pt, alloc, usage_contribution(alloc))
     return pt
-
 
 JOB_TRACKED_VERSIONS = 6
 
@@ -266,6 +286,10 @@ class _ReadMixin:
         alloc and usage writes do not."""
         return self._indexes.get(TABLE_NODES, 0)
 
+    @_locked_on_live
+    def nodes_by_prefix(self, prefix: str) -> list[Node]:
+        return [n for i, n in self._tables[TABLE_NODES].items() if i.startswith(prefix)]
+
     # jobs -------------------------------------------------------------
     def job_by_id(self, namespace: str, job_id: str) -> Optional[Job]:
         return self._tables[TABLE_JOBS].get((namespace, job_id))
@@ -275,6 +299,14 @@ class _ReadMixin:
         if namespace is None:
             return list(self._tables[TABLE_JOBS].values())
         return [j for (ns, _), j in self._tables[TABLE_JOBS].items() if ns == namespace]
+
+    @_locked_on_live
+    def jobs_by_prefix(self, namespace: str, prefix: str) -> list[Job]:
+        return [
+            j
+            for (ns, jid), j in self._tables[TABLE_JOBS].items()
+            if ns == namespace and jid.startswith(prefix)
+        ]
 
     def job_version(self, namespace: str, job_id: str, version: int) -> Optional[Job]:
         return self._tables[TABLE_JOB_VERSIONS].get((namespace, job_id, version))
@@ -304,6 +336,7 @@ class _ReadMixin:
     def job_summary_by_id(self, namespace: str, job_id: str) -> Optional[JobSummary]:
         return self._tables[TABLE_JOB_SUMMARIES].get((namespace, job_id))
 
+    # evals ------------------------------------------------------------
     def eval_by_id(self, eval_id: str) -> Optional[Evaluation]:
         return self._tables[TABLE_EVALS].get(eval_id)
 
@@ -344,14 +377,6 @@ class _ReadMixin:
             )
         ]
 
-    def allocs_by_eval(self, eval_id: str) -> list[Allocation]:
-        return [
-            a.get() if a.__class__ is AllocRow else a
-            for a in list(
-                self._tables[IDX_ALLOCS_EVAL].get(eval_id, {}).values()
-            )
-        ]
-
     def node_usage(self, node_id: str) -> tuple[int, int, int, int]:
         """Committed non-terminal usage on one node: (cpu, memory_mb,
         disk_mb, complex_count). Maintained incrementally on every alloc
@@ -389,6 +414,14 @@ class _ReadMixin:
             )
         ]
 
+    def allocs_by_eval(self, eval_id: str) -> list[Allocation]:
+        return [
+            a.get() if a.__class__ is AllocRow else a
+            for a in list(
+                self._tables[IDX_ALLOCS_EVAL].get(eval_id, {}).values()
+            )
+        ]
+
     @_locked_on_live
     def allocs_by_deployment(self, deployment_id: str) -> list[Allocation]:
         return [
@@ -398,7 +431,16 @@ class _ReadMixin:
         ]
 
     # namespaces -------------------------------------------------------
+    def namespace_by_name(self, name: str):
+        return self._tables[TABLE_NAMESPACES].get(name)
+
+    def namespaces(self) -> list:
+        return list(self._tables[TABLE_NAMESPACES].values())
+
     # volumes ----------------------------------------------------------
+    def volume_by_id(self, namespace: str, vol_id: str):
+        return self._tables[TABLE_VOLUMES].get((namespace, vol_id))
+
     @_locked_on_live
     def volumes(self, namespace: Optional[str] = None) -> list:
         if namespace is None:
@@ -419,9 +461,144 @@ class _ReadMixin:
         ]
 
     # services ---------------------------------------------------------
+    @_locked_on_live
+    def service_names(self, namespace: Optional[str] = None) -> list[dict]:
+        """Catalog summary: one row per service name (reference:
+        ServiceRegistrationsByNamespace)."""
+        agg: dict[tuple[str, str], dict] = {}
+        for reg in self._tables[TABLE_SERVICES].values():
+            if namespace is not None and reg.namespace != namespace:
+                continue
+            row = agg.setdefault(
+                (reg.namespace, reg.service_name),
+                {
+                    "namespace": reg.namespace,
+                    "service_name": reg.service_name,
+                    "tags": set(),
+                    "instances": 0,
+                },
+            )
+            row["tags"].update(reg.tags)
+            row["instances"] += 1
+        out = [
+            {**r, "tags": sorted(r["tags"])}
+            for r in agg.values()
+        ]
+        out.sort(key=lambda r: (r["namespace"], r["service_name"]))
+        return out
+
+    @_locked_on_live
+    def service_registrations(self, namespace: str, name: str) -> list:
+        out = [
+            r
+            for r in self._tables[TABLE_SERVICES].values()
+            if r.namespace == namespace and r.service_name == name
+        ]
+        out.sort(key=lambda r: r.id)
+        return out
+
+    def service_registration_by_id(self, reg_id: str):
+        return self._tables[TABLE_SERVICES].get(reg_id)
+
     # scaling policies -------------------------------------------------
+    def scaling_policies(self, namespace: Optional[str] = None) -> list:
+        out = [
+            p
+            for p in self._tables[TABLE_SCALING_POLICIES].values()
+            if namespace is None or p.namespace == namespace
+        ]
+        out.sort(key=lambda p: (p.namespace, p.job_id, p.group))
+        return out
+
+    def scaling_policy_by_id(self, policy_id: str):
+        return self._tables[TABLE_SCALING_POLICIES].get(policy_id)
+
+    def scaling_events(self, namespace: str, job_id: str) -> dict:
+        """group -> [events], newest first (reference JobScalingEvents)."""
+        return self._tables[TABLE_SCALING_EVENTS].get(
+            (namespace, job_id), {}
+        )
+
+    def scaling_policies_by_job(self, namespace: str, job_id: str) -> list:
+        return [
+            p
+            for p in self._tables[TABLE_SCALING_POLICIES].values()
+            if p.namespace == namespace and p.job_id == job_id
+        ]
+
     # operator config --------------------------------------------------
+    def operator_config(self, key: str):
+        return self._tables[TABLE_OPERATOR].get(key)
+
     # secrets ----------------------------------------------------------
+    def secret_by_path(self, namespace: str, path: str):
+        return self._tables[TABLE_SECRETS].get((namespace, path))
+
+    @_locked_on_live
+    def secrets(self, namespace: Optional[str] = None) -> list:
+        if namespace is None:
+            return list(self._tables[TABLE_SECRETS].values())
+        return [
+            e
+            for (ns, _), e in self._tables[TABLE_SECRETS].items()
+            if ns == namespace
+        ]
+
+    @_locked_on_live
+    def expired_acl_tokens(self, now_ns_: int) -> list:
+        """Tokens past their expiration (the token-gc sweep's read;
+        reference: 1.4 ExpiredACLTokenGC)."""
+        return [
+            t
+            for t in self._tables[TABLE_ACL_TOKENS].values()
+            if t.expiration_time_ns and t.expiration_time_ns < now_ns_
+        ]
+
+    @_locked_on_live
+    def services_by_alloc(self, alloc_id: str) -> list:
+        return [
+            r
+            for r in self._tables[TABLE_SERVICES].values()
+            if r.alloc_id == alloc_id
+        ]
+
+    @_locked_on_live
+    def volumes_for_alloc(self, alloc_id: str) -> list:
+        """Volumes holding a claim by this alloc (the client's mount hook
+        fetches these; reference: CSIVolume.Get per claimed volume)."""
+        return [
+            v
+            for v in self._tables[TABLE_VOLUMES].values()
+            if alloc_id in v.claims
+        ]
+
+    @_locked_on_live
+    def csi_plugins(self) -> dict[str, dict]:
+        """Aggregate CSI plugin health across nodes (reference: the
+        CSIPlugin table nomad/state/state_store.go maintains on node
+        updates; here computed at read time from the nodes table)."""
+        out: dict[str, dict] = {}
+        for node in self._tables[TABLE_NODES].values():
+            for plugin_id, info in node.csi_plugins.items():
+                agg = out.setdefault(plugin_id, {
+                    "id": plugin_id,
+                    "version": info.get("version", ""),
+                    "controllers_healthy": 0,
+                    "controllers_expected": 0,
+                    "nodes_healthy": 0,
+                    "nodes_expected": 0,
+                })
+                healthy = bool(info.get("healthy"))
+                if info.get("controller"):
+                    agg["controllers_expected"] += 1
+                    agg["controllers_healthy"] += int(healthy)
+                if info.get("node", True):
+                    agg["nodes_expected"] += 1
+                    agg["nodes_healthy"] += int(healthy)
+                if info.get("version"):
+                    agg["version"] = info["version"]
+        return out
+
     # deployments ------------------------------------------------------
     def deployment_by_id(self, deployment_id: str) -> Optional[Deployment]:
         return self._tables[TABLE_DEPLOYMENTS].get(deployment_id)
@@ -472,6 +649,13 @@ class StateStore(_ReadMixin):
         # the reference's raft-message-derived stream event types
         # (nomad/state/events.go eventFromChange).
         self._subscribers: list[Callable[[int, str, list, str], None]] = []
+        # Restore hooks: called under lock AFTER a snapshot restore (or
+        # index rebase) replaces the tables, with (index, alloc node-ids).
+        # Separate from _subscribers so internal watch routers can
+        # re-prime without emitting synthetic stream events — external
+        # stream consumers re-subscribe after a restore, as in the
+        # reference.
+        self._restore_subs: list[Callable[[int, set], None]] = []
 
     # -- snapshot / watch ----------------------------------------------
 
@@ -526,12 +710,96 @@ class StateStore(_ReadMixin):
                     return cur
                 self._cv.wait(remaining)
 
+    def subscribe(self, fn: Callable[[int, str, list, str], None]) -> None:
+        self._subscribers.append(fn)
+
+    def subscribe_restore(self, fn: Callable[[int, set], None]) -> None:
+        self._restore_subs.append(fn)
+
+    def _notify_restore(self) -> None:
+        """Caller holds the lock: hand restore hooks the rebased index
+        plus every node that owns allocs in the restored world."""
+        if not self._restore_subs:
+            return
+        node_ids = {
+            getattr(a, "node_id", "")
+            for a in self._tables[TABLE_ALLOCS].values()
+        }
+        node_ids.discard("")
+        for fn in self._restore_subs:
+            fn(self._latest_index, node_ids)
+
+    # -- ACL -----------------------------------------------------------
+
+    def upsert_acl_policies(self, index: int, policies: list) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_ACL_POLICIES)
+            for pol in policies:
+                pol = pol.copy()
+                existing = t.get(pol.name)
+                pol.create_index = existing.create_index if existing else index
+                pol.modify_index = index
+                t[pol.name] = pol
+            self._stamp(index, TABLE_ACL_POLICIES)
+
+    def delete_acl_policies(self, index: int, names: list[str]) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_ACL_POLICIES)
+            for name in names:
+                t.pop(name, None)
+            self._stamp(index, TABLE_ACL_POLICIES)
+
+    def acl_policy_by_name(self, name: str):
+        return self._tables[TABLE_ACL_POLICIES].get(name)
+
+    def acl_policies(self) -> list:
+        return list(self._tables[TABLE_ACL_POLICIES].values())
+
+    def upsert_acl_tokens(self, index: int, tokens: list) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_ACL_TOKENS)
+            for tok in tokens:
+                tok = tok.copy()
+                existing = t.get(tok.accessor_id)
+                tok.create_index = existing.create_index if existing else index
+                tok.modify_index = index
+                t[tok.accessor_id] = tok
+            self._stamp(index, TABLE_ACL_TOKENS)
+
+    def delete_acl_tokens(self, index: int, accessor_ids: list[str]) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_ACL_TOKENS)
+            for aid in accessor_ids:
+                t.pop(aid, None)
+            self._stamp(index, TABLE_ACL_TOKENS)
+
+    def acl_token_by_accessor(self, accessor_id: str):
+        return self._tables[TABLE_ACL_TOKENS].get(accessor_id)
+
+    def acl_token_by_secret(self, secret_id: str):
+        # Locked: iterates a live table with a Python predicate (see the
+        # _locked_reader note at the bottom of this module).
+        with self._lock:
+            for tok in self._tables[TABLE_ACL_TOKENS].values():
+                if tok.secret_id == secret_id:
+                    return tok
+            return None
+
+    def acl_tokens(self) -> list:
+        return list(self._tables[TABLE_ACL_TOKENS].values())
+
+    def acl_has_management_token(self) -> bool:
+        with self._lock:
+            return any(
+                t.type == "management"
+                for t in self._tables[TABLE_ACL_TOKENS].values()
+            )
+
     # -- snapshot persistence ------------------------------------------
 
     def serialize(self) -> bytes:
-        """Full-state snapshot bytes (reference fsm.go:1860 Persist
-        streams every table; here one codec blob — tables, indexes,
-        latest)."""
+        """Full-state snapshot bytes (reference fsm.go:1860 Persist streams
+        every table; here one codec blob — tables, indexes, latest)."""
         from .. import codec
 
         with self._lock:
@@ -546,12 +814,14 @@ class StateStore(_ReadMixin):
 
     def _materialize_rows_locked(self) -> None:
         """Swap any lazy AllocRow handles for their materialized rows in
-        place. A handle and its cached row are the same logical value
-        (snapshot readers holding either see identical state), so the
-        in-place swap is COW-safe: a representation change, not a
-        write."""
+        place, so the native encoder sees only registered structs. A
+        handle and its cached row are the same logical value (snapshot
+        readers holding either see identical state), so the in-place
+        swap is COW-safe — it is a representation change, not a write."""
         t = self._tables[TABLE_ALLOCS]
-        lazy = [(k, v) for k, v in t.items() if v.__class__ is AllocRow]
+        lazy = [
+            (k, v) for k, v in t.items() if v.__class__ is AllocRow
+        ]
         if not lazy:
             return
         for k, v in lazy:
@@ -565,16 +835,19 @@ class StateStore(_ReadMixin):
 
     def restore_from(self, raw: bytes) -> None:
         """Replace all state from snapshot bytes (reference fsm.go:1381
-        Restore). Watchers are woken."""
+        Restore). Watchers are woken; subscribers are NOT replayed — stream
+        consumers must re-subscribe after a restore, as in the reference."""
         from .. import codec
 
         data = codec.unpack(raw)
+        # Forward compatibility: snapshots from before a table existed
+        # restore with that table empty instead of KeyError-ing later.
         for t in ALL_TABLES + INDEX_TABLES:
             data["tables"].setdefault(t, {})
         for t in ALL_TABLES:
             data["indexes"].setdefault(t, 0)
-        # the usage table's tuple values are rebuilt from the allocs
-        # table rather than trusted
+        # The usage table's tuple values round-trip as lists through the
+        # codec; rebuild from the allocs table rather than trusting them.
         data["tables"][IDX_NODE_USED] = rebuild_node_usage(
             data["tables"][TABLE_ALLOCS]
         )
@@ -587,6 +860,25 @@ class StateStore(_ReadMixin):
             self._latest_index = data["latest"]
             self._shared = set()
             self._idx_owned.clear()
+            self._notify_restore()
+            self._cv.notify_all()
+
+    def rebase_indexes(self, index: int) -> None:
+        """Re-stamp every table index to `index` after an operator
+        snapshot restore.
+
+        The snapshot carries the indexes of the CLUSTER IT WAS SAVED
+        FROM; the restoring cluster's raft log continues from its own
+        position. Without rebasing, a snapshot saved at index 5000
+        restored into a cluster at index 4 leaves _latest_index=5000
+        while new writes stamp 5,6,... — wait_for_index goes stale and
+        blocking queries hang (the reference avoids this by resetting
+        raft itself to a post-snapshot index in helper/snapshot)."""
+        with self._cv:
+            for t in self._indexes:
+                self._indexes[t] = index
+            self._latest_index = index
+            self._notify_restore()
             self._cv.notify_all()
 
     # -- write plumbing ------------------------------------------------
@@ -702,7 +994,9 @@ class StateStore(_ReadMixin):
     def upsert_nodes(self, index: int, nodes: list) -> None:
         """Bulk ``upsert_node``: one lock hold, one index stamp, one
         published event block for the whole batch — the store half of
-        the batched node-register raft entry."""
+        the batched node-register raft entry (a 10k-node reconnect
+        storm commits as a bounded number of entries, each landing
+        here once)."""
         with self._lock:
             t = self._wtable(TABLE_NODES)
             upserted = []
@@ -806,8 +1100,6 @@ class StateStore(_ReadMixin):
             self._stamp(index, TABLE_NODES)
             self._publish(index, TABLE_NODES, [node], "NodeDrain")
 
-    # -- jobs ----------------------------------------------------------
-
     def update_node_eligibility(
         self, index: int, node_id: str, eligibility: str
     ) -> None:
@@ -827,9 +1119,12 @@ class StateStore(_ReadMixin):
             self._stamp(index, TABLE_NODES)
             self._publish(index, TABLE_NODES, [node], "NodeEligibilityUpdate")
 
+    # -- jobs ----------------------------------------------------------
+
     def upsert_job(self, index: int, job: Job, keep_version: bool = False) -> None:
         with self._lock:
             self._upsert_job_txn(index, job, keep_version)
+            self._sync_scaling_policies_txn(index, job)
             self._stamp(index, TABLE_JOBS, TABLE_JOB_VERSIONS, TABLE_JOB_SUMMARIES)
             self._publish(
                 index,
@@ -892,7 +1187,39 @@ class StateStore(_ReadMixin):
         summary.modify_index = index
         st[job.ns_id()] = summary
 
-    # -- evals ---------------------------------------------------------
+    def _sync_scaling_policies_txn(self, index: int, job) -> None:
+        """Keep the scaling-policy table in lockstep with the job's
+        scaling stanzas (reference: UpsertJob upserts/deletes policies
+        for the job's groups, state_store.go updateJobScalingPolicies).
+        Deterministic ids (ns/job/group) so re-registration updates in
+        place."""
+        t = self._wtable(TABLE_SCALING_POLICIES)
+        wanted: dict[str, object] = {}
+        for tg in job.task_groups:
+            if tg.scaling is None:
+                continue
+            pol = tg.scaling.copy()
+            pol.id = f"{job.namespace}/{job.id}/{tg.name}"
+            pol.namespace = job.namespace
+            pol.job_id = job.id
+            pol.group = tg.name
+            existing = t.get(pol.id)
+            pol.create_index = existing.create_index if existing else index
+            pol.modify_index = index
+            wanted[pol.id] = pol
+        stale = [
+            pid
+            for pid, p in t.items()
+            if p.namespace == job.namespace
+            and p.job_id == job.id
+            and pid not in wanted
+        ]
+        changed = bool(wanted) or bool(stale)
+        for pid in stale:
+            del t[pid]
+        t.update(wanted)
+        if changed:
+            self._stamp(index, TABLE_SCALING_POLICIES)
 
     def reconcile_job_summaries(self, index: int) -> int:
         """Rebuild every job summary from the alloc table (reference
@@ -970,28 +1297,27 @@ class StateStore(_ReadMixin):
             vt = self._wtable(TABLE_JOB_VERSIONS)
             for k in [k for k in vt if k[0] == namespace and k[1] == job_id]:
                 del vt[k]
-            self._wtable(TABLE_JOB_SUMMARIES).pop((namespace, job_id), None)
-            self._stamp(index, TABLE_JOBS, TABLE_JOB_VERSIONS,
-                        TABLE_JOB_SUMMARIES)
+            st = self._wtable(TABLE_JOB_SUMMARIES)
+            st.pop((namespace, job_id), None)
+            sp = self._wtable(TABLE_SCALING_POLICIES)
+            for pid in [
+                pid
+                for pid, p in sp.items()
+                if p.namespace == namespace and p.job_id == job_id
+            ]:
+                del sp[pid]
+            self._wtable(TABLE_SCALING_EVENTS).pop(
+                (namespace, job_id), None
+            )
+            self._stamp(
+                index, TABLE_JOBS, TABLE_JOB_VERSIONS,
+                TABLE_JOB_SUMMARIES, TABLE_SCALING_POLICIES,
+                TABLE_SCALING_EVENTS,
+            )
             if job is not None:
                 self._publish(index, TABLE_JOBS, [job], "JobDeregistered")
 
-    def delete_evals(self, index: int, eval_ids: list[str], alloc_ids: list[str]) -> None:
-        with self._lock:
-            t = self._wtable(TABLE_EVALS)
-            gone_evals = [t.pop(eid) for eid in eval_ids if eid in t]
-            gone_allocs = [
-                a
-                for aid in alloc_ids
-                if (a := self._tables[TABLE_ALLOCS].get(aid)) is not None
-            ]
-            for aid in alloc_ids:
-                self._del_alloc(aid)
-            self._stamp(index, TABLE_EVALS, TABLE_ALLOCS)
-            if gone_evals:
-                self._publish(index, TABLE_EVALS, gone_evals, "EvaluationDeleted")
-            if gone_allocs:
-                self._publish(index, TABLE_ALLOCS, gone_allocs, "AllocationDeleted")
+    # -- evals ---------------------------------------------------------
 
     def upsert_evals(self, index: int, evals: list[Evaluation]) -> None:
         with self._lock:
@@ -1036,6 +1362,41 @@ class StateStore(_ReadMixin):
     # reference structs.go JobTrackedScalingEvents = 20
     SCALING_EVENTS_TRACKED = 20
 
+    def upsert_scaling_event(
+        self, index: int, namespace: str, job_id: str, group: str,
+        event: dict,
+    ) -> None:
+        """Append one scale event, bounded per group (reference
+        state_store.go UpsertScalingEvent keeps the newest
+        JobTrackedScalingEvents = 20)."""
+        with self._lock:
+            t = self._wtable(TABLE_SCALING_EVENTS)
+            key = (namespace, job_id)
+            cur = t.get(key) or {}
+            fresh = {g: list(evs) for g, evs in cur.items()}
+            evs = fresh.setdefault(group, [])
+            evs.insert(0, dict(event))
+            del evs[self.SCALING_EVENTS_TRACKED:]
+            t[key] = fresh
+            self._stamp(index, TABLE_SCALING_EVENTS)
+
+    def delete_evals(self, index: int, eval_ids: list[str], alloc_ids: list[str]) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_EVALS)
+            gone_evals = [t.pop(eid) for eid in eval_ids if eid in t]
+            gone_allocs = [
+                a
+                for aid in alloc_ids
+                if (a := self._tables[TABLE_ALLOCS].get(aid)) is not None
+            ]
+            for aid in alloc_ids:
+                self._del_alloc(aid)
+            self._stamp(index, TABLE_EVALS, TABLE_ALLOCS)
+            if gone_evals:
+                self._publish(index, TABLE_EVALS, gone_evals, "EvaluationDeleted")
+            if gone_allocs:
+                self._publish(index, TABLE_ALLOCS, gone_allocs, "AllocationDeleted")
+
     # -- allocs --------------------------------------------------------
 
     def upsert_allocs(self, index: int, allocs: list[Allocation]) -> None:
@@ -1043,77 +1404,6 @@ class StateStore(_ReadMixin):
             stored = self._upsert_allocs_txn(index, allocs)
             self._stamp(index, TABLE_ALLOCS, TABLE_JOB_SUMMARIES)
             self._publish(index, TABLE_ALLOCS, stored, "AllocationUpdated")
-
-    def update_allocs_from_client(self, index: int, allocs: list[Allocation]) -> None:
-        """Merge client-reported status into stored allocs.
-
-        Reference: state_store.go UpdateAllocsFromClient / nested
-        updateClientAllocUpdateIndex.
-        """
-        with self._lock:
-            t = self._wtable(TABLE_ALLOCS)
-            jobs_touched: set[tuple[str, str]] = set()
-            stored: list[Allocation] = []
-            for update in allocs:
-                existing = t.get(update.id)
-                if existing is None:
-                    continue
-                alloc = existing.copy()
-                alloc.client_status = update.client_status
-                alloc.client_description = update.client_description
-                alloc.task_states = {
-                    k: v.copy() for k, v in update.task_states.items()
-                }
-                if update.deployment_status is not None:
-                    alloc.deployment_status = update.deployment_status.copy()
-                if update.network_status is not None:
-                    alloc.network_status = dataclasses.replace(update.network_status)
-                    alloc.network_status.dns = dict(update.network_status.dns)
-                alloc.modify_index = index
-                alloc.modify_time = now_ns()
-                self._put_alloc(alloc, existing)
-                stored.append(alloc)
-                jobs_touched.add((alloc.namespace, alloc.job_id))
-            self._reconcile_summaries_txn(index, jobs_touched)
-            for ns, job_id in jobs_touched:
-                self._update_job_status_txn(index, ns, job_id)
-            self._stamp(index, TABLE_ALLOCS, TABLE_JOB_SUMMARIES)
-            self._publish(
-                index, TABLE_ALLOCS, stored, "AllocationUpdatedFromClient"
-            )
-
-    def update_alloc_desired_transition(
-        self, index: int, transitions: dict[str, DesiredTransition],
-        evals: list[Evaluation],
-    ) -> None:
-        with self._lock:
-            t = self._wtable(TABLE_ALLOCS)
-            changed: list[Allocation] = []
-            for alloc_id, transition in transitions.items():
-                existing = t.get(alloc_id)
-                if existing is None:
-                    continue
-                alloc = existing.copy()
-                dt = alloc.desired_transition
-                if transition.migrate is not None:
-                    dt.migrate = transition.migrate
-                if transition.reschedule is not None:
-                    dt.reschedule = transition.reschedule
-                if transition.force_reschedule is not None:
-                    dt.force_reschedule = transition.force_reschedule
-                alloc.modify_index = index
-                self._put_alloc(alloc, existing)
-                changed.append(alloc)
-            if evals:
-                stored_evals = self._upsert_evals_txn(index, evals)
-                self._stamp(index, TABLE_EVALS)
-            self._stamp(index, TABLE_ALLOCS)
-            if changed:
-                self._publish(
-                    index, TABLE_ALLOCS, changed, "AllocationUpdateDesiredStatus"
-                )
-            if evals:
-                self._publish(index, TABLE_EVALS, stored_evals, "EvaluationUpdated")
 
     def _upsert_allocs_txn(
         self,
@@ -1301,8 +1591,9 @@ class StateStore(_ReadMixin):
         eval_inner: dict,
         node_inners: dict,
     ) -> None:
-        """Pure-Python twin of fastpack.store_rows: group rows per node,
-        preserving row order within a node and first-touch node order — the exact insertion sequence the eager txn produces
+        """Pure-Python fallback for fastpack.store_rows: group rows per
+        node, preserving row order within a node and first-touch node
+        order — the exact insertion sequence the eager txn produces
         from a node_allocation dict, so the two paths build
         byte-identical tables (the identity battery serializes and
         compares)."""
@@ -1355,8 +1646,9 @@ class StateStore(_ReadMixin):
         from .. import codec
 
         # native_module never compiles (codec.warm_native is the one
-        # build point, outside any lock), so resolving it under the
-        # store lock is a cached attribute read, not a C build.
+        # sanctioned build point, outside any lock — NV-lock-blocking),
+        # so resolving it under the store lock is a cached attribute
+        # read, not a C build.
         fp = codec.native_module()
         t = self._wtable(TABLE_ALLOCS)
         ut = self._wtable(IDX_NODE_USED)
@@ -1430,6 +1722,385 @@ class StateStore(_ReadMixin):
         for ns, job_id in jobs_touched:
             self._update_job_status_txn(index, ns, job_id)
         return stored
+
+    def update_allocs_from_client(self, index: int, allocs: list[Allocation]) -> None:
+        """Merge client-reported status into stored allocs.
+
+        Reference: state_store.go UpdateAllocsFromClient / nested
+        updateClientAllocUpdateIndex.
+        """
+        with self._lock:
+            t = self._wtable(TABLE_ALLOCS)
+            jobs_touched: set[tuple[str, str]] = set()
+            stored: list[Allocation] = []
+            for update in allocs:
+                existing = t.get(update.id)
+                if existing is None:
+                    continue
+                alloc = existing.copy()
+                alloc.client_status = update.client_status
+                alloc.client_description = update.client_description
+                alloc.task_states = {
+                    k: v.copy() for k, v in update.task_states.items()
+                }
+                if update.deployment_status is not None:
+                    alloc.deployment_status = update.deployment_status.copy()
+                if update.network_status is not None:
+                    alloc.network_status = dataclasses.replace(update.network_status)
+                    alloc.network_status.dns = dict(update.network_status.dns)
+                alloc.modify_index = index
+                alloc.modify_time = now_ns()
+                self._put_alloc(alloc, existing)
+                stored.append(alloc)
+                jobs_touched.add((alloc.namespace, alloc.job_id))
+            self._reconcile_summaries_txn(index, jobs_touched)
+            for ns, job_id in jobs_touched:
+                self._update_job_status_txn(index, ns, job_id)
+            self._stamp(index, TABLE_ALLOCS, TABLE_JOB_SUMMARIES)
+            self._publish(
+                index, TABLE_ALLOCS, stored, "AllocationUpdatedFromClient"
+            )
+
+    def update_alloc_desired_transition(
+        self, index: int, transitions: dict[str, "DesiredTransition"], evals: list[Evaluation]
+    ) -> None:
+        from ..structs.structs import DesiredTransition  # local to avoid cycle
+
+        with self._lock:
+            t = self._wtable(TABLE_ALLOCS)
+            changed: list[Allocation] = []
+            for alloc_id, transition in transitions.items():
+                existing = t.get(alloc_id)
+                if existing is None:
+                    continue
+                alloc = existing.copy()
+                dt = alloc.desired_transition
+                if transition.migrate is not None:
+                    dt.migrate = transition.migrate
+                if transition.reschedule is not None:
+                    dt.reschedule = transition.reschedule
+                if transition.force_reschedule is not None:
+                    dt.force_reschedule = transition.force_reschedule
+                alloc.modify_index = index
+                self._put_alloc(alloc, existing)
+                changed.append(alloc)
+            if evals:
+                stored_evals = self._upsert_evals_txn(index, evals)
+                self._stamp(index, TABLE_EVALS)
+            self._stamp(index, TABLE_ALLOCS)
+            if changed:
+                self._publish(
+                    index, TABLE_ALLOCS, changed, "AllocationUpdateDesiredStatus"
+                )
+            if evals:
+                self._publish(index, TABLE_EVALS, stored_evals, "EvaluationUpdated")
+
+    # -- namespaces ----------------------------------------------------
+
+    def upsert_namespace(self, index: int, ns) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_NAMESPACES)
+            existing = t.get(ns.name)
+            ns = ns.copy()
+            ns.create_index = existing.create_index if existing else index
+            ns.modify_index = index
+            t[ns.name] = ns
+            self._stamp(index, TABLE_NAMESPACES)
+            self._publish(index, TABLE_NAMESPACES, [ns], "NamespaceUpserted")
+
+    def delete_namespace(self, index: int, name: str) -> None:
+        """Refuses while the namespace holds jobs or volumes (reference
+        namespace_endpoint.go DeleteNamespaces nonTerminal check)."""
+        if name == "default":
+            raise ValueError("the default namespace cannot be deleted")
+        with self._lock:
+            t = self._wtable(TABLE_NAMESPACES)
+            ns = t.get(name)
+            if ns is None:
+                raise KeyError(f"namespace {name} not found")
+            # Only NON-TERMINAL jobs block deletion (reference
+            # namespace_endpoint.go nonTerminal check): dead jobs pending
+            # GC should not wedge the namespace for minutes.
+            in_use = sum(
+                1
+                for (jns, _), j in self._tables[TABLE_JOBS].items()
+                if jns == name and not (j.stop or j.status == JOB_STATUS_DEAD)
+            ) + sum(
+                1 for (vns, _) in self._tables[TABLE_VOLUMES] if vns == name
+            )
+            if in_use:
+                raise ValueError(
+                    f"namespace {name} has {in_use} jobs/volumes"
+                )
+            del t[name]
+            self._stamp(index, TABLE_NAMESPACES)
+            self._publish(index, TABLE_NAMESPACES, [ns], "NamespaceDeleted")
+
+    # -- volumes -------------------------------------------------------
+
+    def upsert_volume(self, index: int, vol) -> None:
+        """Register/update a volume. Claims survive re-registration
+        (reference: CSIVolumeRegister keeps claim state)."""
+        with self._lock:
+            t = self._wtable(TABLE_VOLUMES)
+            key = (vol.namespace, vol.id)
+            existing = t.get(key)
+            vol = vol.copy()
+            if existing is not None:
+                vol.create_index = existing.create_index
+                vol.claims = {
+                    k: c for k, c in existing.claims.items()
+                }
+            else:
+                vol.create_index = index
+            vol.modify_index = index
+            t[key] = vol
+            self._stamp(index, TABLE_VOLUMES)
+            self._publish(index, TABLE_VOLUMES, [vol], "VolumeRegistered")
+
+    def delete_volume(self, index: int, namespace: str, vol_id: str) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_VOLUMES)
+            vol = t.get((namespace, vol_id))
+            if vol is None:
+                raise KeyError(f"volume {vol_id} not found")
+            if vol.claims:
+                raise ValueError(
+                    f"volume {vol_id} has {len(vol.claims)} active claims"
+                )
+            del t[(namespace, vol_id)]
+            self._stamp(index, TABLE_VOLUMES)
+            self._publish(index, TABLE_VOLUMES, [vol], "VolumeDeregistered")
+
+    def claim_volume(
+        self,
+        index: int,
+        namespace: str,
+        vol_id: str,
+        alloc_id: str,
+        node_id: str,
+        read_only: bool,
+    ) -> None:
+        """Attach an alloc's claim; raises on access-mode conflict
+        (reference: CSIVolumeClaim)."""
+        from ..structs.structs import VolumeClaim
+
+        with self._lock:
+            t = self._wtable(TABLE_VOLUMES)
+            vol = t.get((namespace, vol_id))
+            if vol is None:
+                raise KeyError(f"volume {vol_id} not found")
+            if alloc_id in vol.claims:
+                return
+            ok, why = vol.claimable(read_only)
+            if not ok:
+                raise ValueError(f"volume {vol_id}: {why}")
+            vol = vol.copy()
+            vol.claims[alloc_id] = VolumeClaim(
+                alloc_id=alloc_id,
+                node_id=node_id,
+                read_only=read_only,
+                create_index=index,
+            )
+            vol.modify_index = index
+            t[(namespace, vol_id)] = vol
+            self._stamp(index, TABLE_VOLUMES)
+            self._publish(index, TABLE_VOLUMES, [vol], "VolumeClaimed")
+
+    def _claim_volumes_txn(self, index: int, allocs: list[Allocation]) -> None:
+        """Best-effort claims for freshly placed allocs whose group asks
+        for volumes that are REGISTERED (unregistered host volumes keep
+        the config-only semantics). Conflicts are logged, not fatal —
+        feasibility screened them; a race loses gracefully."""
+        vt = self._tables[TABLE_VOLUMES]
+        if not vt:
+            return
+        import logging
+
+        log = logging.getLogger("nomad_tpu_torch.state")
+        for alloc in allocs:
+            if alloc.terminal_status() or alloc.job is None:
+                continue
+            tg = alloc.job.lookup_task_group(alloc.task_group)
+            if tg is None or not tg.volumes:
+                continue
+            for req in tg.volumes.values():
+                # A node-pinned volume only serves allocs on its node;
+                # prefer the pinned match over an unpinned (any-node) one.
+                matches = [
+                    vol
+                    for vol in vt.values()
+                    if vol.namespace == alloc.namespace
+                    and vol.name == req.source
+                    and vol.node_id in ("", alloc.node_id)
+                ]
+                matches.sort(key=lambda v: v.node_id == "", )
+                if not matches:
+                    continue
+                vol = matches[0]
+                try:
+                    self.claim_volume(
+                        index,
+                        vol.namespace,
+                        vol.id,
+                        alloc.id,
+                        alloc.node_id,
+                        req.read_only,
+                    )
+                except (KeyError, ValueError) as e:
+                    log.warning(
+                        "volume claim for alloc %s: %s", alloc.id, e
+                    )
+
+    # -- operator config -----------------------------------------------
+
+    def upsert_operator_config(self, index: int, key: str, value: dict) -> None:
+        """Raft-replicated operator knobs (reference: autopilot config
+        lives in raft state, operator_endpoint.go)."""
+        with self._lock:
+            t = self._wtable(TABLE_OPERATOR)
+            t[key] = dict(value)
+            self._stamp(index, TABLE_OPERATOR)
+
+    # -- secrets -------------------------------------------------------
+
+    def upsert_secret(self, index: int, entry) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_SECRETS)
+            key = (entry.namespace, entry.path)
+            entry = entry.copy()
+            existing = t.get(key)
+            entry.create_index = existing.create_index if existing else index
+            entry.modify_index = index
+            t[key] = entry
+            self._stamp(index, TABLE_SECRETS)
+            # event subscribers must never see secret VALUES — publish a
+            # redacted row (path/namespace only)
+            self._publish(
+                index,
+                TABLE_SECRETS,
+                [dataclasses.replace(entry, items={})],
+                "SecretUpserted",
+            )
+
+    def delete_secret(self, index: int, namespace: str, path: str) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_SECRETS)
+            entry = t.pop((namespace, path), None)
+            if entry is None:
+                raise KeyError(f"secret {path} not found")
+            self._stamp(index, TABLE_SECRETS)
+            self._publish(
+                index,
+                TABLE_SECRETS,
+                [dataclasses.replace(entry, items={})],
+                "SecretDeleted",
+            )
+
+    # -- services ------------------------------------------------------
+
+    def upsert_service_registrations(self, index: int, regs: list) -> None:
+        """Register/update service instances (reference:
+        state_store_service_registration.go UpsertServiceRegistrations)."""
+        with self._lock:
+            t = self._wtable(TABLE_SERVICES)
+            stored = []
+            for reg in regs:
+                reg = reg.copy()
+                existing = t.get(reg.id)
+                reg.create_index = (
+                    existing.create_index if existing else index
+                )
+                reg.modify_index = index
+                t[reg.id] = reg
+                stored.append(reg)
+            if stored:
+                self._stamp(index, TABLE_SERVICES)
+                self._publish(
+                    index, TABLE_SERVICES, stored, "ServiceRegistration"
+                )
+
+    def delete_service_registrations(self, index: int, ids: list[str]) -> int:
+        with self._lock:
+            t = self._wtable(TABLE_SERVICES)
+            gone = [t.pop(i) for i in ids if i in t]
+            if gone:
+                self._stamp(index, TABLE_SERVICES)
+                self._publish(
+                    index, TABLE_SERVICES, gone, "ServiceDeregistration"
+                )
+            return len(gone)
+
+    def delete_services_by_alloc(self, index: int, alloc_ids) -> int:
+        """Drop every registration owned by the given allocs (client
+        deregister on task stop + the GC sweep for lost clients)."""
+        drop = set(alloc_ids)
+        with self._lock:
+            t = self._wtable(TABLE_SERVICES)
+            gone = [r for r in t.values() if r.alloc_id in drop]
+            for r in gone:
+                del t[r.id]
+            if gone:
+                self._stamp(index, TABLE_SERVICES)
+                self._publish(
+                    index, TABLE_SERVICES, gone, "ServiceDeregistration"
+                )
+            return len(gone)
+
+    def release_volume_claims_scoped(
+        self, index: int, namespace: str, vol_id: str,
+        alloc_ids: list[str],
+    ) -> int:
+        """Drop the given allocs' claims on ONE volume (the detach
+        escape hatch — releasing them everywhere would free claims the
+        same allocs legitimately hold on other volumes)."""
+        drop = set(alloc_ids)
+        released = 0
+        with self._lock:
+            t = self._wtable(TABLE_VOLUMES)
+            vol = t.get((namespace, vol_id))
+            if vol is None:
+                return 0
+            hits = drop & vol.claims.keys()
+            if not hits:
+                return 0
+            vol = vol.copy()
+            for aid in hits:
+                del vol.claims[aid]
+                released += 1
+            vol.modify_index = index
+            t[(namespace, vol_id)] = vol
+            self._stamp(index, TABLE_VOLUMES)
+            self._publish(
+                index, TABLE_VOLUMES, [vol], "VolumeClaimReleased"
+            )
+        return released
+
+    def release_volume_claims(self, index: int, alloc_ids: list[str]) -> int:
+        """Drop the given allocs' claims everywhere; returns how many
+        claims were released (the volume watcher's write)."""
+        drop = set(alloc_ids)
+        released = 0
+        with self._lock:
+            t = self._wtable(TABLE_VOLUMES)
+            changed: list = []
+            for key, vol in list(t.items()):
+                hits = drop & vol.claims.keys()
+                if not hits:
+                    continue
+                vol = vol.copy()
+                for aid in hits:
+                    del vol.claims[aid]
+                    released += 1
+                vol.modify_index = index
+                t[key] = vol
+                changed.append(vol)
+            if changed:
+                self._stamp(index, TABLE_VOLUMES)
+                self._publish(
+                    index, TABLE_VOLUMES, changed, "VolumeClaimReleased"
+                )
+        return released
 
     # -- plan results (the serialization point) ------------------------
 
@@ -1513,7 +2184,14 @@ class StateStore(_ReadMixin):
             # Ownership transfer: every alloc in a committed plan is either
             # freshly minted by the scheduler or a plan-owned copy (Plan's
             # append_* methods copy), so the store takes them without the
-            # per-alloc defensive copy.
+            # per-alloc defensive copy. The fresh-alloc scan only exists
+            # for volume claims — skip it (and its 10^5 membership probes)
+            # when no volumes are registered at all.
+            fresh_allocs = (
+                [a for a in allocs_to_upsert if a.id not in t]
+                if self._tables[TABLE_VOLUMES]
+                else []
+            )
             committed.extend(
                 self._upsert_allocs_txn(
                     index, allocs_to_upsert, owned=True,
@@ -1529,6 +2207,23 @@ class StateStore(_ReadMixin):
                 committed.extend(
                     self._upsert_batches_txn(index, batches, default_jobs)
                 )
+                # volume-bearing batches materialize for the claim walk
+                # (rare: volumes gate the plan onto the serial path)
+                if self._tables[TABLE_VOLUMES]:
+                    for b in batches:
+                        job = b.job
+                        tg = (
+                            job.lookup_task_group(b.task_group)
+                            if job is not None
+                            else None
+                        )
+                        if tg is not None and tg.volumes:
+                            fresh_allocs.extend(b.materialize())
+            # Volume claims attach atomically with the placements that
+            # need them (reference: the CSI claim RPC; here the plan
+            # apply IS the claim point for registered volumes).
+            if fresh_allocs:
+                self._claim_volumes_txn(index, fresh_allocs)
             # Record placed canaries on their deployment's group state
             # (reference state_store.go:4888 "Ensure PlacedCanaries
             # accurately reflects the alloc canary status"): the
@@ -1582,16 +2277,6 @@ class StateStore(_ReadMixin):
 
     # -- deployments ---------------------------------------------------
 
-    def delete_deployment(self, index: int, deployment_ids: list[str]) -> None:
-        with self._lock:
-            t = self._wtable(TABLE_DEPLOYMENTS)
-            gone = [t.pop(did) for did in deployment_ids if did in t]
-            self._stamp(index, TABLE_DEPLOYMENTS)
-            if gone:
-                self._publish(
-                    index, TABLE_DEPLOYMENTS, gone, "DeploymentDeleted"
-                )
-
     def upsert_deployment(self, index: int, deployment: Deployment) -> None:
         with self._lock:
             self._upsert_deployment_txn(index, deployment)
@@ -1621,8 +2306,6 @@ class StateStore(_ReadMixin):
         d.modify_time = now_ns()
         t[d.id] = d
 
-    # -- derived state -------------------------------------------------
-
     def update_deployment_status(self, index: int, update) -> None:
         with self._lock:
             self._update_deployment_status_txn(index, update)
@@ -1631,6 +2314,16 @@ class StateStore(_ReadMixin):
             if d is not None:
                 self._publish(
                     index, TABLE_DEPLOYMENTS, [d], "DeploymentStatusUpdate"
+                )
+
+    def delete_deployment(self, index: int, deployment_ids: list[str]) -> None:
+        with self._lock:
+            t = self._wtable(TABLE_DEPLOYMENTS)
+            gone = [t.pop(did) for did in deployment_ids if did in t]
+            self._stamp(index, TABLE_DEPLOYMENTS)
+            if gone:
+                self._publish(
+                    index, TABLE_DEPLOYMENTS, gone, "DeploymentDeleted"
                 )
 
     def update_deployment_promotion(
@@ -1762,6 +2455,8 @@ class StateStore(_ReadMixin):
                 self._publish(
                     index, TABLE_DEPLOYMENTS, [d2], "DeploymentAllocHealth"
                 )
+
+    # -- derived state -------------------------------------------------
 
     def _reconcile_summaries_txn(
         self, index: int, jobs_touched: set[tuple[str, str]]
