@@ -218,7 +218,51 @@ Phases (one JSON line each, with its seconds):
                 events.publish, the stream's share of the FSM apply). No
                 device failover or failed batch, every eval complete, no
                 node over capacity; K1 in the volumes and jobs steps;
-  10. mesh    — the node-sharded route (kernels also checks the sharded
+  10. cluster — replication and the cluster (nomad_tpu's
+                server/raft_replication.py, raft_store.py, cluster.py,
+                blackbox_wire.py and testing/chaos.py, ported): three
+                ClusterServers (ChaosCluster, a durable raft log per data
+                dir) over the port's fabric at c2m's width, the leader's
+                GPU batch worker pipelined in batches of 8.
+                cluster.setup: the servers boot and elect; c2m's 10,000
+                nodes through the two followers' Node.register over the
+                fabric from 32 threads, forwarded to the leader and
+                coalesced by its NodeRegisterBatcher. cluster.c2m: c2m's
+                first 50 jobs through a follower's Job.register (each
+                acked once the call returns) until all three stores hold
+                50,000 live allocs. cluster.failover: the leader killed,
+                the seconds to a new leader and to the end of its
+                establish_leadership (the replay barrier first), c2m's
+                other 50 jobs through the surviving follower until both
+                live stores hold 100,000; the new leader's worker starts
+                cold: its first sync a full upload, then K2 delta syncs.
+                cluster.restart: the killed server from its data dir, the
+                entries it reloaded from raft.db and the seconds until it
+                caught up; all three stores equal alloc for alloc (id,
+                node, resources, desired and client status, indexes) and
+                table for table. Each step prints its wall, K1-K3
+                launches and resident syncs, leader changes and elections
+                (numbers to record, not gates), the raft entries and
+                payload bytes it wrote by type, nomad.raft.apply_seconds'
+                count and sum, the AppendEntries calls and bytes, the
+                largest replication lag (leader commit to the last live
+                follower's apply), the collector's passes (each stops
+                all three servers), registrations retried through
+                leadership churn, batches nacked by it, and its summed
+                batch spans. Then no acked job lost and no duplicate
+                alloc (check_invariants), no node over capacity, every
+                eval complete, no device failover, no failed batch but
+                those nacked by leadership churn (they redeliver to the
+                next leader), no raft log compacted, K1 once for every
+                compact solve before and after the failover, both
+                leaders' resident tensors and every tensor of their K1-K3
+                calls on cuda:0; the store's serialize() bytes and
+                seconds beside MAX_FRAME (a number to record); shutdown
+                leaves no batch-worker thread. No client runs: each
+                server's heartbeat TTL floor is an hour; the heap the
+                earlier phases left is frozen out of the collector while
+                the cluster runs (FrozenHeap);
+  11. mesh    — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -232,7 +276,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  11. replay  — each kernel's first call on its path replayed against its
+  12. replay  — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -249,8 +293,9 @@ Phases (one JSON line each, with its seconds):
                 bounds), K1 and K2 not donated at the lifecycle phase's
                 (`lifecycle`, `lifecycle_copy`), K1 at the tenancy
                 phase's first masked call (`tenancy`, with the nodes its
-                live groups may place on);
-  12. small   — the same three waves at 200 nodes, and at 500 nodes on
+                live groups may place on), K1-K3 at the cluster phase's
+                first calls (`cluster`);
+  13. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
@@ -265,17 +310,24 @@ Phases (one JSON line each, with its seconds):
                 (TEN_SMALL: jobs of 50, the fleet from one thread) with
                 every batch and watcher pass driven by hand
                 (tenancy_lockstep, which tests/test_torch_tenancy.py also
-                runs against nomad_tpu's Server), on the card and on the
-                CPU twins: identical placements, victims, eval outcomes,
-                chain verdicts, plans, deployments, job versions, drain
-                marks, claims, services, scaling policies and events,
-                ACL and secret tables and the event sequence.
+                runs against nomad_tpu's Server), and the cluster at 200
+                nodes (CLUSTER_SMALL: three servers, jobs of 50, each
+                through a follower with its eval complete before the
+                next, a leader kill, more jobs, a restart, one job scaled;
+                cluster_lockstep, which tests/test_torch_cluster.py also
+                runs against nomad_tpu's ClusterServer), on the card and
+                on the CPU twins: identical placements, victims, eval
+                outcomes, chain verdicts, plans, deployments, job
+                versions, drain marks, claims, services, scaling policies
+                and events, ACL and secret tables and the event sequence,
+                and every cluster server's store equal to the others'.
 
 Then the card's name and power limit (nvidia-smi), one {"kernels": [...]}
 line (K1-K3 also carry `server_launches`, their count in the server
 phase; every kernel `pool_launches`, its count in pool.c2m, and
-`lifecycle_launches`, its count in the lifecycle phase, and
-`tenancy_launches`, its count in the tenancy phase; K1 and K2 `pool`,
+`lifecycle_launches`, its count in the lifecycle phase,
+`tenancy_launches`, its count in the tenancy phase, and
+`cluster_launches`, its count in the cluster phase; K1 and K2 `pool`,
 each member's first call held and timed), and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is nonzero and no
 result line is printed. Without a CUDA
@@ -285,6 +337,7 @@ device it exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import random
 import re
@@ -394,20 +447,26 @@ def device_ms(fn, reps: int) -> tuple:
     only queues work. A spin kernel holds the card while the host queues
     `reps` calls, so the events around the calls see them back to back
     on the card, with none of the host's time between them. Fails if the
-    spin ended before the host had queued every call."""
+    spin ended before the host had queued every call. The collector is
+    paused while the calls are queued, so a pass of it over a phase's
+    heap cannot hold the queue past the spin."""
     fn()
     torch.cuda.synchronize()
     cycles = 20_000_000  # ~10 ms at the H100's boost clock
-    for _ in range(4):
+    for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_s = time.perf_counter() - t0
-        b.record()
+        gc.disable()
+        try:
+            torch.cuda._sleep(cycles)
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_s = time.perf_counter() - t0
+            b.record()
+        finally:
+            gc.enable()
         covered = not a.query()
         b.synchronize()
         if covered:
@@ -3352,6 +3411,693 @@ def check_tenancy_run(res) -> None:
 
 
 # ---------------------------------------------------------------------------
+# replication and the cluster: three ClusterServers (nomad_tpu's
+# server/cluster.py, raft_replication.py, raft_store.py and
+# testing/chaos.py, ported) through a leader kill and a restart from disk
+# ---------------------------------------------------------------------------
+
+# the cluster phase at c2m's width: the fleet through the two followers'
+# Node.register from 32 threads, c2m's first 50 jobs through a follower,
+# the leader killed, the other 50 through the surviving follower, the
+# killed server restarted from its data dir
+CLUSTER = {"nodes": 10000, "count": 1000, "jobs": 100, "threads": 32}
+# cluster_lockstep's size: 200 nodes, jobs of 50, six before the kill
+# and six after, then job 0 scaled to 60 after the restart
+CLUSTER_SMALL = {"nodes": 200, "count": 50, "before": 6, "after": 6,
+                 "scaled": 60}
+# no client heartbeats in these runs: each server's heartbeat wheel is
+# given a TTL floor of an hour, so the fleet stays up (the wheel runs)
+CLUSTER_TTL_S = 3600.0
+# how long a registration is retried through leadership churn
+CLUSTER_RETRY_S = 120.0
+
+
+def cluster_tune(cs) -> None:
+    """What every booted server of a run gets before any node registers:
+    the TTL floor, and (batch worker) batches of SERVER_BATCH."""
+    cs.server.heartbeaters.min_ttl_s = CLUSTER_TTL_S
+    w = getattr(cs.server, "tpu_worker", None)
+    if w is not None:
+        w.batch_size = SERVER_BATCH
+
+
+def cluster_wait(cond, what: str, timeout_s: float) -> float:
+    """Poll cond until it holds; the seconds it took."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout_s,
+              f"cluster: {what} after {timeout_s} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def followers(cluster) -> list:
+    lead = cluster.leader()
+    return [cs for nid, cs in sorted(cluster.servers.items())
+            if cs is not lead]
+
+
+def live_count(state) -> int:
+    from nomad_tpu_torch.state.store import TABLE_ALLOCS
+
+    # a copy of the table's rows: the apply loop writes it meanwhile
+    return sum(1 for a in list(state._tables[TABLE_ALLOCS].values())
+               if not a.terminal_status())
+
+
+def job_done(state, job_id: str, count: int) -> bool:
+    """Every eval of the job complete and `count` of its allocs live."""
+    evs = state.evals_by_job("default", job_id)
+    return (bool(evs) and all(e.status == "complete" for e in evs)
+            and sum(1 for a in state.allocs_by_job("default", job_id)
+                    if not a.terminal_status()) == count)
+
+
+def store_view(state) -> dict:
+    """A replica's store, alloc for alloc (id, job, group, node,
+    resources, desired and client status, indexes) and table for table
+    (keys and table index), with the jobs and evals it holds."""
+    allocs = []
+    for a in state.allocs():
+        r = a.comparable_resources()
+        allocs.append((a.id, a.job_id, a.task_group, a.node_id, r.cpu,
+                       r.memory_mb, r.disk_mb, a.desired_status,
+                       a.client_status, a.create_index, a.modify_index))
+    tables = {}
+    for t in sorted(state._indexes):
+        rows = state._tables.get(t, {})
+        tables[t] = (state._indexes[t], sorted(map(repr, rows)))
+    return {
+        "allocs": sorted(allocs),
+        "tables": tables,
+        "jobs": sorted((j.namespace, j.id, j.version, j.modify_index,
+                        j.stop) for j in state.jobs()),
+        "evals": sorted((e.id, e.job_id, e.status, e.modify_index)
+                        for e in state.evals()),
+        "nodes": sorted((n.id, n.status, n.modify_index)
+                        for n in state.nodes()),
+    }
+
+
+def cluster_outcome(state) -> dict:
+    """What a run's end state must show whatever its ids and raft
+    indexes: placements (job, group, node) with their counts, eval
+    outcomes and job versions."""
+    placed: dict = {}
+    for a in state.allocs():
+        if not a.terminal_status():
+            key = (a.job_id, a.task_group, a.node_id)
+            placed[key] = placed.get(key, 0) + 1
+    return {
+        "placed": sorted(placed.items()),
+        "evals": sorted(
+            (e.job_id, e.triggered_by, e.status,
+             tuple(sorted((e.queued_allocations or {}).items())))
+            for e in state.evals()),
+        "versions": sorted((j.id, j.version) for j in state.jobs()),
+    }
+
+
+# errors of a write that met leadership churn on its way: a leaderless
+# window, an election, or a leader deposed while the entry replicated
+CHURN_ERRORS = ("NotLeaderError", "LeadershipLostError", "no cluster leader")
+
+
+def register_through(pool, cluster, method: str, args: dict, k: int = 0,
+                     retried=None) -> object:
+    """A Node or Job register sent over the fabric to a follower (the
+    k-th, or the leader when none is left), retried through leadership
+    churn as the reference's chaos scenarios retry it: a node or job
+    registered again is an upsert. Each retry's error goes to
+    `retried`; any other error raises."""
+    from nomad_tpu_torch.rpc import RPCError
+
+    deadline = time.monotonic() + CLUSTER_RETRY_S
+    while True:
+        fols = followers(cluster)
+        target = fols[k % len(fols)] if fols else cluster.leader()
+        try:
+            return pool.call(target.addr, method, args, timeout_s=60.0)
+        except (RPCError, ConnectionError, TimeoutError) as e:
+            if isinstance(e, RPCError) and not any(
+                    c in str(e) for c in CHURN_ERRORS):
+                raise
+            check(time.monotonic() < deadline,
+                  f"cluster: {method} failed through churn: {e!r}")
+            if retried is not None:
+                retried.append(type(e).__name__)
+            time.sleep(0.2)
+
+
+def cluster_lockstep(boot, make, nodes: list, cfg=CLUSTER_SMALL) -> dict:
+    """CLUSTER_SMALL on a three-server cluster, one eval at a time.
+
+    boot() returns a started three-server ChaosCluster and a ConnPool of
+    one package (the tests hand nomad_tpu's to the same function); make
+    builds a job of that package. Every node and job goes through a
+    follower's endpoint over the fabric, and each job's eval completes
+    before the next job is registered, so each batch holds one eval and
+    the placements are deterministic. At a quiet point the leader is
+    killed; the next jobs go through the surviving follower; the killed
+    server restarts from its data dir and catches up; job 0 is scaled
+    up. Every server's store must then be equal, alloc for alloc and
+    table for table; the run returns the placements, eval outcomes and
+    job versions (cluster_outcome) and what happened."""
+    cluster, pool = boot()
+    try:
+        for cs in cluster.servers.values():
+            cluster_tune(cs)
+        check(cluster.wait_for_stable_leader(60) is not None,
+              "lockstep: no leader")
+        for n in nodes:
+            register_through(pool, cluster, "Node.register", {"node": n})
+        cluster_wait(lambda: all(len(cs.server.state.nodes()) == len(nodes)
+                                 for cs in cluster.servers.values()),
+                     "lockstep: the fleet did not replicate", 60)
+        count = cfg["count"]
+
+        def run(job, want):
+            register_through(pool, cluster, "Job.register", {"job": job})
+            cluster.acked_jobs.add(job.id)
+            cluster_wait(lambda: (cluster.leader() is not None and job_done(
+                cluster.leader().server.state, job.id, want)),
+                f"lockstep: job {job.id} not placed", 120)
+
+        jobs = [make(f"lock-{j}", count)
+                for j in range(cfg["before"] + cfg["after"])]
+        for job in jobs[:cfg["before"]]:
+            run(job, count)
+        check(cluster.converged(60), "lockstep: no convergence before kill")
+        killed = cluster.leader().node_id
+        cluster.kill(killed)
+        check(cluster.wait_for_stable_leader(60) is not None,
+              "lockstep: no leader after the kill")
+        for job in jobs[cfg["before"]:]:
+            run(job, count)
+        cluster.restart(killed)
+        cluster_tune(cluster.servers[killed])
+        check(cluster.wait_caught_up(killed, 120),
+              "lockstep: the restarted server never caught up")
+        scaled = make("lock-0", cfg["scaled"])
+        run(scaled, cfg["scaled"])
+        check(cluster.converged(60), "lockstep: no convergence at the end")
+        cluster.check_invariants()
+        views = {nid: store_view(cs.server.state)
+                 for nid, cs in cluster.servers.items()}
+        first = views[cluster.ids[0]]
+        for nid, v in views.items():
+            for key in first:
+                check(v[key] == first[key],
+                      f"lockstep: store of {nid} differs in {key}")
+        lead = cluster.leader()
+        out = cluster_outcome(lead.server.state)
+        out["servers_compared"] = len(views)
+        out["allocs_compared"] = len(first["allocs"])
+        return out
+    finally:
+        cluster.shutdown()
+        pool.shutdown()
+
+
+class FrozenHeap:
+    """The process's heap so far frozen out of the collector's passes
+    while a cluster runs, as the reference's agent freezes its heap at
+    startup (gctune.freeze_startup_heap): a pass stops every thread, the
+    three in-process servers' heartbeats too, and a pass over what the
+    earlier phases left takes longer than their election timeout."""
+
+    def __enter__(self) -> "FrozenHeap":
+        gc.collect()
+        gc.freeze()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.unfreeze()
+
+
+def cluster_small(device: str, nodes: list) -> dict:
+    """cluster_lockstep on the port's ChaosCluster, the batch worker on
+    `device` with every solve on it (small_batch_threshold 0)."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch.rpc import ConnPool
+    from nomad_tpu_torch.testing.chaos import ChaosCluster
+
+    root = tempfile.mkdtemp(prefix="cluster-lockstep-")
+
+    def boot():
+        cluster = ChaosCluster(
+            3, root, scheduler_config=SchedulerConfig(
+                device=device, small_batch_threshold=0),
+            use_tpu_batch_worker=True)
+        return cluster.start(), ConnPool()
+
+    try:
+        with FrozenHeap():
+            return cluster_lockstep(boot, make_job,
+                                    [n.copy() for n in nodes])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class RaftClock:
+    """Commit and apply times per raft index across a cluster's
+    incarnations: wraps each RaftNode's commit advance and each FSM's
+    apply on the instance. lag(lo, hi) is, over the entries in (lo, hi],
+    the largest time from the leader's commit to the last live
+    follower's apply."""
+
+    def __init__(self) -> None:
+        self.commit: dict = {}
+        self.applied: dict = {}
+
+    def watch(self, cs) -> None:
+        raft, nid = cs.raft, cs.node_id
+        applied = self.applied.setdefault(nid, {})
+        real_adv, real_apply = raft._advance_commit_locked, raft.fsm.apply
+
+        def advance():
+            before = raft.commit_index
+            real_adv()
+            now = time.monotonic()
+            for i in range(before + 1, raft.commit_index + 1):
+                self.commit.setdefault(i, now)
+
+        def apply(index, msg_type, payload):
+            out = real_apply(index, msg_type, payload)
+            applied[index] = time.monotonic()
+            return out
+
+        raft._advance_commit_locked = advance
+        raft.fsm.apply = apply
+
+    def lag(self, cluster, lo: int, hi: int) -> float:
+        lead = cluster.leader()
+        worst = 0.0
+        for i in range(lo + 1, hi + 1):
+            t = self.commit.get(i)
+            if t is None:
+                continue
+            for nid in cluster.servers:
+                if lead is not None and nid == lead.node_id:
+                    continue
+                a = self.applied.get(nid, {}).get(i)
+                if a is not None:
+                    worst = max(worst, a - t)
+        return worst
+
+
+class GcClock:
+    """The cyclic collector's passes while installed (gc.callbacks):
+    per generation, the count and the longest pass, and the seconds all
+    passes took. A pass stops every thread of the process: all three
+    servers of an in-process cluster at once."""
+
+    def __init__(self) -> None:
+        self._t0 = 0.0
+        self.reset()
+        gc.callbacks.append(self._cb)
+
+    def reset(self) -> None:
+        self.count = [0, 0, 0]
+        self.max_s = [0.0, 0.0, 0.0]
+        self.total_s = 0.0
+
+    def _cb(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        dt = time.perf_counter() - self._t0
+        g = info["generation"]
+        self.count[g] += 1
+        self.max_s[g] = max(self.max_s[g], dt)
+        self.total_s += dt
+
+    def read(self) -> dict:
+        out = {"passes": list(self.count), "max_s": list(self.max_s),
+               "total_s": self.total_s}
+        self.reset()
+        return out
+
+    def remove(self) -> None:
+        gc.callbacks.remove(self._cb)
+
+
+class SyncLog:
+    """Every ResidentClusterState.sync's outcome (last_sync), per
+    resident instance, in call order; `total` counts them all. A
+    compact batch syncs the worker's resident tensors once, just before
+    its K1 launch."""
+
+    def __init__(self) -> None:
+        self.real = solver_mod.ResidentClusterState.sync
+        self.by_resident: dict = {}
+        self.total = 0
+        log = self
+
+        def sync(resident, *args, **kwargs):
+            out = log.real(resident, *args, **kwargs)
+            log.by_resident.setdefault(id(resident), []).append(
+                resident.last_sync)
+            log.total += 1
+            return out
+
+        solver_mod.ResidentClusterState.sync = sync
+
+    def of(self, resident) -> list:
+        return list(self.by_resident.get(id(resident), []))
+
+    def restore(self) -> None:
+        solver_mod.ResidentClusterState.sync = self.real
+
+
+def log_entries(cluster, lo: int, hi: int) -> dict:
+    """The leader's raft entries in (lo, hi]: count and payload bytes by
+    type."""
+    raft = cluster.leader().raft
+    out: dict = {}
+    with raft._lock:
+        entries = [e for e in raft._log if lo < e.index <= hi]
+    for e in entries:
+        n, b = out.get(e.msg_type, (0, 0))
+        out[e.msg_type] = (n + 1, b + len(e.payload or b""))
+    return {k: {"entries": n, "bytes": b} for k, (n, b) in out.items()}
+
+
+def cluster_step(cluster, clock, m0, m1, l0, l1, lo, hi, wall, traces,
+                 elections: int) -> dict:
+    """One step's numbers: wall, K1-K3 launches, leader changes (the
+    process-wide counter: step-downs count too) and elections won,
+    raft entries and bytes by type, raft apply count and sum, the
+    AppendEntries calls (count, seconds, request bytes), replication
+    lag, summed batch spans."""
+    def count(name):
+        return m1["counters"].get(name, 0) - m0["counters"].get(name, 0)
+
+    def hist(name, key):
+        return (m1["samples"].get(name, {}).get(key, 0)
+                - m0["samples"].get(name, {}).get(key, 0))
+
+    ae = "Raft.append_entries"
+    return {
+        "wall_s": wall,
+        "launches": {k: l1[k] - l0[k] for k in l1},
+        "leader_changes": count("nomad.raft.leader_changes"),
+        "elections": elections,
+        "failed_batches": count("nomad.worker.invoke.failed"),
+        "churn_nacks": count("nomad.rpc.retry_count.worker.submit"),
+        "raft_entries": log_entries(cluster, lo, hi),
+        "raft_apply": {"count": hist("nomad.raft.apply_seconds", "count"),
+                       "sum_s": hist("nomad.raft.apply_seconds", "sum")},
+        "append_entries": {
+            "calls": hist(f"nomad.rpc.call_seconds.{ae}", "count"),
+            "sum_s": hist(f"nomad.rpc.call_seconds.{ae}", "sum"),
+            "sent_bytes": count(f"nomad.rpc.sent_bytes.{ae}"),
+            "served_s": hist(f"nomad.rpc.served_seconds.{ae}", "sum")},
+        "max_replication_lag_s": clock.lag(cluster, lo, hi),
+        "batches": len(traces),
+        "compact_batches": sum(
+            1 for t in traces
+            if any(sp.name == "device.wait" for sp in t.spans)),
+        "spans_ms": span_sums_ms(traces),
+    }
+
+
+def launch_counts() -> dict:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {
+        "solve_placement_compact": tk.solve_placement_compact.launches,
+        "scatter_rows": tk.scatter_rows.launches,
+        "scatter_rows_copy": tk.scatter_rows.launches_copy,
+        "scatter_add_rows": tk.scatter_add_rows.launches,
+    }
+
+
+def worker_threads() -> set:
+    return {t for t in threading.enumerate() if t.is_alive()
+            and t.name in ("tpu-batch-solve", "tpu-batch-commit")}
+
+
+def cluster_scenario(device: str, cfg: dict, on_step) -> dict:
+    """The cluster phase (CLUSTER) on three ClusterServers with the GPU
+    batch worker on `device`, batches of SERVER_BATCH, pipelined:
+    cluster.setup, .c2m, .failover, .restart (module docstring, phase
+    10). Launch counters zeroed just before c2m's first register and
+    read after the failover's last placement."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch import codec, metrics
+    from nomad_tpu_torch.metrics import Registry
+    from nomad_tpu_torch.rpc import ConnPool
+    from nomad_tpu_torch.rpc.wire import MAX_FRAME
+    from nomad_tpu_torch.testing.chaos import ChaosCluster
+
+    metrics._install_registry(Registry())
+    trace.clear_finished()
+    threads_before = worker_threads()
+    root = tempfile.mkdtemp(prefix="cluster-c2m-")
+    cluster = ChaosCluster(
+        3, root, scheduler_config=SchedulerConfig(device=device),
+        use_tpu_batch_worker=True)
+    pool = ConnPool()
+    clock, syncs, gcs = RaftClock(), SyncLog(), GcClock()
+    established: dict = {}
+    retried: list = []  # registrations retried through churn, this step
+    steps: dict = {}
+    out = {"steps": steps}
+    n_nodes, count, n_jobs = cfg["nodes"], cfg["count"], cfg["jobs"]
+    half = n_jobs // 2
+
+    def watch(cs):
+        cluster_tune(cs)
+        clock.watch(cs)
+        real = cs.server.establish_leadership
+
+        def establish():
+            t0 = time.monotonic()
+            real()
+            established[cs.node_id] = (t0, time.monotonic())
+
+        cs.server.establish_leadership = establish
+
+    def mark():
+        lead = cluster.leader()
+        return (metrics.snapshot(), launch_counts(),
+                lead.raft.last_index if lead else 0, time.perf_counter(),
+                cluster.total_elections(), syncs.total)
+
+    def step(name, t_mark, **extra):
+        m0, l0, lo, t0, e0, y0 = t_mark
+        m1, l1, hi, t1, e1, y1 = mark()
+        traces = batch_traces()
+        trace.clear_finished()
+        s = cluster_step(cluster, clock, m0, m1, l0, l1, lo, hi, t1 - t0,
+                         traces, e1 - e0)
+        s["resident_syncs"] = y1 - y0
+        s["register_retries"] = len(retried)
+        retried.clear()
+        s["gc"] = gcs.read()
+        s.update(extra)
+        steps[name] = s
+        on_step(f"cluster.{name}", s["wall_s"],
+                **{k: v for k, v in s.items() if k != "wall_s"})
+
+    def all_live(want, servers, timeout_s):
+        return cluster_wait(
+            lambda: all(live_count(cs.server.state) == want
+                        for cs in servers),
+            f"the stores never held {want} live allocs", timeout_s)
+
+    try:
+        # cluster.setup
+        t_setup = (metrics.snapshot(), launch_counts(), 0,
+                   time.perf_counter(), 0, 0)
+        cluster.start()
+        for cs in cluster.servers.values():
+            watch(cs)
+        lead = cluster.wait_for_stable_leader(120)
+        check(lead is not None, "cluster: no leader at boot")
+        elect_s = time.perf_counter() - t_setup[3]
+        nodes = c2m_nodes(n_nodes)
+        errors = []
+
+        def register(k):
+            try:
+                for n in nodes[k::cfg["threads"]]:
+                    register_through(pool, cluster, "Node.register",
+                                     {"node": n}, k=k, retried=retried)
+            except Exception as e:  # surfaced by the check below
+                errors.append(repr(e))
+
+        t_reg = time.perf_counter()
+        ts = [threading.Thread(target=register, args=(k,))
+              for k in range(cfg["threads"])]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        check(not errors, f"cluster: node registration failed: {errors[:3]}")
+        reg_s = time.perf_counter() - t_reg
+        cluster_wait(lambda: all(len(cs.server.state.nodes()) == n_nodes
+                                 for cs in cluster.servers.values()),
+                     "the fleet did not replicate", 300)
+        step("setup", t_setup, elect_s=elect_s, register_s=reg_s,
+             leader=cluster.leader().node_id)
+
+        # cluster.c2m: the first half of c2m's jobs through a follower
+        jobs = [make_job(f"cl-{j}", count) for j in range(n_jobs)]
+        tk.reset_launch_counts()
+        t_c2m = mark()
+        for job in jobs[:half]:
+            register_through(pool, cluster, "Job.register", {"job": job},
+                             retried=retried)
+            cluster.acked_jobs.add(job.id)
+        all_live(half * count, cluster.servers.values(), 900)
+        wall = time.perf_counter() - t_c2m[3]
+        lead = cluster.leader()
+        step("c2m", t_c2m, jobs_per_s=half / wall,
+             allocs_per_s=half * count / wall, leader=lead.node_id)
+        old_res = lead.server.tpu_worker._resident
+
+        # cluster.failover: kill the leader, the other half through the
+        # surviving follower
+        t_fo = mark()
+        t_kill = time.monotonic()
+        killed = lead.node_id
+        cluster.kill(killed)
+        kill_s = time.monotonic() - t_kill
+        new_lead = None
+
+        def elected():
+            nonlocal new_lead
+            new_lead = cluster.leader()
+            return new_lead is not None
+
+        cluster_wait(elected, "no leader after the kill", 120)
+        cluster_wait(lambda: established.get(new_lead.node_id,
+                                             (0.0, 0.0))[0] > t_kill,
+                     "the new leader never finished establish_leadership",
+                     120)
+        # elected: its leader-change callback began establish_leadership
+        # (the replay barrier first); established: the callback returned
+        to_leader = established[new_lead.node_id][0] - t_kill
+        to_established = established[new_lead.node_id][1] - t_kill
+        for job in jobs[half:]:
+            register_through(pool, cluster, "Job.register", {"job": job},
+                             retried=retried)
+            cluster.acked_jobs.add(job.id)
+        all_live(n_jobs * count, cluster.servers.values(), 900)
+        out["launches"] = launch_counts()
+        new_res = new_lead.server.tpu_worker._resident
+        new_syncs = syncs.of(new_res)
+        step("failover", t_fo, killed=killed, leader=new_lead.node_id,
+             kill_s=kill_s, to_leader_s=to_leader,
+             to_established_s=to_established,
+             new_leader_syncs=new_syncs[:3] + (
+                 [f"... {len(new_syncs)} syncs"] if len(new_syncs) > 3
+                 else []))
+        out["new_leader_syncs"] = new_syncs
+        out["resident"] = (old_res, new_res)
+
+        # cluster.restart: the killed server from its data dir
+        t_rs = mark()
+        cs = cluster.restart(killed)
+        watch(cs)
+        with cs.raft._lock:
+            replayed = len(cs.raft._log)
+        caught = cluster.wait_caught_up(killed, 600)
+        check(caught, "cluster: the restarted server never caught up")
+        caught_s = time.perf_counter() - t_rs[3]
+        check(cluster.converged(300), "cluster: no convergence after restart")
+        t_cmp = time.perf_counter()
+        views = {nid: store_view(s.server.state)
+                 for nid, s in cluster.servers.items()}
+        first = views[cluster.ids[0]]
+        for nid, v in views.items():
+            for key in first:
+                check(v[key] == first[key],
+                      f"cluster: the store of {nid} differs in {key}")
+        compare_s = time.perf_counter() - t_cmp
+        step("restart", t_rs, restarted=killed, replayed_entries=replayed,
+             caught_up_s=caught_s, compare_s=compare_s,
+             allocs_compared=len(first["allocs"]), servers=len(views),
+             terms={nid: s.raft.current_term
+                    for nid, s in sorted(cluster.servers.items())})
+
+        # the checks over the whole run
+        cluster.check_invariants()
+        lead = cluster.leader()
+        check_server_state(lead.server, n_jobs * count)
+        c = metrics.snapshot()["counters"]
+        check(c.get("nomad.worker.device_failover", 0) == 0,
+              "cluster: a device failover")
+        # a batch whose commit met a deposed leader (NotLeaderError)
+        # nacks and redelivers to the next leader: the churn path, which
+        # the worker counts apart; any other failed batch fails the run
+        failed = (c.get("nomad.worker.invoke.failed", 0)
+                  - c.get("nomad.rpc.retry_count.worker.submit", 0))
+        check(failed == 0,
+              f"cluster: {failed} batches failed to solve or commit")
+        check(all(s.raft._snap_last_index == 0
+                  for s in cluster.servers.values()),
+              "cluster: a raft log compacted")
+        out["log_entries"] = lead.raft.last_index
+        t0 = time.perf_counter()
+        snap = lead.server.state.serialize()
+        out["snapshot"] = {"bytes": len(snap),
+                           "seconds": time.perf_counter() - t0,
+                           "max_frame": MAX_FRAME}
+        del snap
+        out["fastpack_live"] = codec.native_module() is not None
+    finally:
+        syncs.restore()
+        gcs.remove()
+        t0 = time.perf_counter()
+        cluster.shutdown()
+        pool.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+    out["leaked_workers"] = sorted(t.name for t in
+                                   worker_threads() - threads_before)
+    return out
+
+
+def check_cluster_run(res) -> None:
+    """K1 on the card before and after the failover, once for every
+    compact solve (every sync of a worker's resident tensors) in each
+    step, the new leader's first sync a full upload and then K2
+    donated, both leaders' resident tensors on cuda:0, no worker thread
+    left after shutdown. (A step's batch traces can straddle its end:
+    a trace finishes after its batch's allocs are counted.)"""
+    steps = res["steps"]
+    for name in ("c2m", "failover"):
+        s = steps[name]
+        k1 = s["launches"]["solve_placement_compact"]
+        check(s["resident_syncs"] > 0 and k1 >= s["resident_syncs"],
+              f"cluster.{name}: K1 ran {k1} times for "
+              f"{s['resident_syncs']} compact solves")
+    syncs = res["new_leader_syncs"]
+    check(syncs and syncs[0] == "full",
+          f"cluster: the new leader's first sync was {syncs[:1]}")
+    check(any(s.startswith("delta:") for s in syncs[1:]),
+          "cluster: the new leader made no delta sync")
+    check(steps["failover"]["launches"]["scatter_rows"] >= 1,
+          "cluster.failover: K2 donated was not launched")
+    cuda0 = torch.device("cuda", 0)
+    for r in res["resident"]:
+        check(r is not None and r._cap_dev.device == cuda0
+              and r._used_dev.device == cuda0,
+              "cluster: a leader's resident tensors are not on cuda:0")
+    check(res["fastpack_live"], "cluster: the C fastpack did not load")
+    check(not res["leaked_workers"],
+          f"cluster: worker threads left after shutdown: "
+          f"{res['leaked_workers']}")
+
+
+# ---------------------------------------------------------------------------
 # the mesh route: c2m_sharded at full width, the preempt wave on 8 shards
 # ---------------------------------------------------------------------------
 
@@ -4681,7 +5427,31 @@ def main() -> int:
         tres["srv"].shutdown()
     del tres
 
-    # 10. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 10. replication and the cluster at c2m's width: three
+    #    ClusterServers, the fleet through the followers, c2m's first 50
+    #    jobs, a leader kill, the other 50 on the new leader, a restart
+    #    from disk; launch counters zeroed just before the first job
+    #    register and read after the failover's last placement
+    t_cl = time.perf_counter()
+    crec = server_recorders()
+    trace.set_enabled(True)
+    try:
+        with FrozenHeap():
+            cres = cluster_scenario("cuda", CLUSTER, on_server)
+    finally:
+        trace.set_enabled(False)
+        for r in reversed(list(crec.values())):
+            r.restore()
+    cluster_launches = cres["launches"]
+    check(all(t.is_cuda for r in crec.values() for t in r.tensors),
+          "a tensor of the cluster path is on the host")
+    check_cluster_run(cres)
+    phase("cluster", t_cl, launches=cluster_launches,
+          log_entries=cres["log_entries"], snapshot=cres["snapshot"],
+          shutdown_s=cres["shutdown_s"])
+    del cres
+
+    # 11. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -4694,7 +5464,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 11. replay each path's calls against the twins, and time them
+    # 12. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -4731,13 +5501,23 @@ def main() -> int:
         ten_held["solve_placement_compact"]
     kernels[names.index("scatter_rows")]["tenancy_launches_copy"] = \
         ten_launches["scatter_rows_copy"]
+    cl_held = replay_server({k: r for k, r in crec.items()
+                             if cluster_launches[k] > 0}, cluster_launches)
+    for k in kernels:
+        k["cluster_launches"] = cluster_launches.get(k["name"], 0)
+        if k["name"] in cl_held:
+            k["cluster"] = cl_held[k["name"]]
+    kernels[names.index("scatter_rows")]["cluster_launches_copy"] = \
+        cluster_launches["scatter_rows_copy"]
+    del crec
     phase("replay", t0)
 
-    # 12. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    # 13. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
     #    bench.py's preempt config and its drain config, its pipeline
-    #    config through the batch worker driven by hand, and the
-    #    lifecycle's five steps and the tenancy steps at 200 nodes driven
-    #    by hand: card == CPU twins
+    #    config through the batch worker driven by hand, the lifecycle's
+    #    five steps and the tenancy steps at 200 nodes driven by hand,
+    #    and the three-server cluster one eval at a time through a kill
+    #    and a restart: card == CPU twins
     t0 = time.perf_counter()
     small_gpu = three_waves("cuda", 200, 8, 200, 2)
     small_cpu = three_waves("cpu", 200, 8, 200, 2)
@@ -4812,6 +5592,13 @@ def main() -> int:
     for key in ten_gpu:
         check(ten_gpu[key] == ten_cpu[key],
               f"tenancy: card and CPU twins differ in {key}")
+    # the cluster at CLUSTER_SMALL: 200 nodes, jobs of 50
+    cl_nodes = c2m_nodes(CLUSTER_SMALL["nodes"])
+    cl_gpu = cluster_small("cuda", cl_nodes)
+    cl_cpu = cluster_small("cpu", cl_nodes)
+    for key in cl_gpu:
+        check(cl_gpu[key] == cl_cpu[key],
+              f"cluster: card and CPU twins differ in {key}")
     phase("small", t0, allocs_compared=len(small_gpu["placed"]),
           mesh_allocs_compared=len(mesh_gpu["placed"]),
           preempt_placed=len(pre_gpu["placed"]),
@@ -4830,7 +5617,10 @@ def main() -> int:
           tenancy_claims_compared=sum(len(c) for c in
                                       ten_gpu["claims"].values()),
           tenancy_events_compared=sum(len(b) for _, b in ten_gpu["events"]),
-          tenancy_batches=len(ten_gpu["verdicts"]))
+          tenancy_batches=len(ten_gpu["verdicts"]),
+          cluster_allocs_compared=cl_gpu["allocs_compared"],
+          cluster_placements=sum(n for _, n in cl_gpu["placed"]),
+          cluster_evals=len(cl_gpu["evals"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -181,6 +181,31 @@ class SourceLedger:
         ]
         return out
 
+    def stats(self) -> dict:
+        """Bounded-cardinality provider gauges (``nomad.rpc.source.*``
+        rides the registry; per-source values stay in the ledger)."""
+        with self._lock:
+            return {
+                "tracked": float(len(self._sources)),
+                "evicted": float(self.evicted),
+                "calls": float(self.total_calls),
+                "seconds": round(self.total_seconds, 6),
+                "unattributed_calls": float(self.unattributed_calls),
+                "unattributed_seconds": round(
+                    self.unattributed_seconds, 6
+                ),
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._sources.clear()
+            self.evicted = 0
+            self.total_calls = 0
+            self.total_seconds = 0.0
+            self.unattributed_calls = 0
+            self.unattributed_seconds = 0.0
+
+
 # -- thread -> active-source registry ------------------------------------
 
 # tid -> source, maintained by the RPC dispatch path around handler

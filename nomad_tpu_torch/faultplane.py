@@ -1,29 +1,35 @@
-"""The fault plane: deterministic, seedable device-stage fault injection.
+"""The fault plane: deterministic, seedable fault injection.
 
-Port of ``nomad_tpu/faultplane.py``, cut to the hooks the port has:
+Port of ``nomad_tpu/faultplane.py``. A production-side leaf holding the
+:class:`FaultPlane` rule engine and the process-global ``plane`` slot
+that the hook sites read:
 
+  - ``rpc/client.py`` ConnPool.call -> :meth:`FaultPlane.on_rpc_call`
+    (drops, delays and partitions by node label);
+  - ``rpc/server.py`` RPCServer._dispatch ->
+    :meth:`FaultPlane.on_rpc_serve` (a delivered request whose answer is
+    lost);
+  - ``server/raft_store.py`` append/set_state/store_snapshot ->
+    :meth:`FaultPlane.on_disk` (fsync failures and slow disk on the
+    raft log);
   - the batch worker's device stage -> :meth:`FaultPlane.on_device`,
     called at the start of the solve stage's dispatch (``"dispatch"``)
     and of the commit stage's device wait (``"finish"``). A firing rule
     raises :class:`DeviceFault`, whose ``retriable`` flag the worker
     classifies: retriable faults fall back to the host solve path,
     terminal ones nack the batch. :class:`DeviceLost` is a real CUDA
-    fault at the device wait or readback, always terminal;
-  - ``rpc/client.py`` ConnPool.call -> :meth:`FaultPlane.on_rpc_call`
-    (drops, delays and partitions by node label);
-  - ``rpc/server.py`` RPCServer._dispatch ->
-    :meth:`FaultPlane.on_rpc_serve` (a delivered request whose answer is
-    lost).
+    fault at the device wait or readback, always terminal.
 
-The disk rules stay with the reference's raft store.
-
-Every hook is a single module-attribute check when no plane is
-installed; nothing here touches production behavior until
-``install(FaultPlane(seed=...))``.
+Each rule is optionally probabilistic (one seeded RNG consulted under one
+lock, so a seed fixes the whole fault schedule) and/or bounded by a
+count. :func:`env_knobs_active` names every live injection knob. The
+scenario harness (ChaosCluster) lives in ``testing/chaos.py``, which
+re-exports this module.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -47,6 +53,24 @@ def uninstall() -> None:
     plane = None
 
 
+def active() -> bool:
+    """Is any fault injection live (installed plane with rules)?"""
+    return plane is not None and plane.has_rules()
+
+
+def env_knobs_active() -> list[str]:
+    """Names of NOMAD_TPU_INJECT_* env knobs currently set non-zero,
+    plus a sentinel for an installed fault plane."""
+    out = [
+        k
+        for k, v in os.environ.items()
+        if k.startswith("NOMAD_TPU_INJECT_") and v.strip() not in ("", "0")
+    ]
+    if active():
+        out.append("<fault-plane-installed>")
+    return out
+
+
 class InjectedRPCError(ConnectionError):
     """An injected connection-level drop; subclasses ConnectionError so
     the production rundown/redial paths treat it as a real network
@@ -56,6 +80,10 @@ class InjectedRPCError(ConnectionError):
 class DropResponse(Exception):
     """Server-side injection: swallow the request, send no response
     (the caller sees a timeout, as with a partition after delivery)."""
+
+
+class InjectedDiskError(OSError):
+    """An injected fsync/write failure on the raft log store."""
 
 
 class DeviceFault(Exception):
@@ -117,6 +145,18 @@ class FaultPlane:
         except (TypeError, IndexError):
             return ""
 
+    def has_rules(self) -> bool:
+        with self._lock:
+            return bool(self._rules)
+
+    def heal(self, kind: Optional[str] = None) -> None:
+        """Drop all rules (or all rules of one kind)."""
+        with self._lock:
+            if kind is None:
+                self._rules.clear()
+            else:
+                self._rules = [r for r in self._rules if r.kind != kind]
+
     # -- rule builders -------------------------------------------------
 
     def _add(self, rule: _Rule) -> "FaultPlane":
@@ -176,6 +216,24 @@ class FaultPlane:
 
         return self._add(_Rule("serve.drop", match, None, prob, times))
 
+    def fail_disk(self, label: Optional[str] = None, op: Optional[str] = None,
+                  prob: float = 1.0, times: Optional[int] = None) -> "FaultPlane":
+        """Inject InjectedDiskError from the raft store's write ops
+        (op in {append, state, snapshot}; None = all)."""
+
+        def match(lbl, o):
+            return (label is None or lbl == label) and (op is None or o == op)
+
+        return self._add(_Rule("disk.fail", match, None, prob, times))
+
+    def slow_disk(self, delay_s: float, label: Optional[str] = None,
+                  op: Optional[str] = None, prob: float = 1.0,
+                  times: Optional[int] = None) -> "FaultPlane":
+        def match(lbl, o):
+            return (label is None or lbl == label) and (op is None or o == op)
+
+        return self._add(_Rule("disk.slow", match, delay_s, prob, times))
+
     def fail_device(self, phase: Optional[str] = None, retriable: bool = True,
                     prob: float = 1.0, times: Optional[int] = None) -> "FaultPlane":
         """Raise DeviceFault from the worker's device stage (phase in
@@ -222,6 +280,14 @@ class FaultPlane:
         rule = self._fire(("serve.drop",), label, method)
         if rule is not None:
             raise DropResponse(f"injected response drop at {label} {method}")
+
+    def on_disk(self, label: str, op: str) -> None:
+        rule = self._fire(("disk.slow",), label, op)
+        if rule is not None:
+            time.sleep(rule.action)
+        rule = self._fire(("disk.fail",), label, op)
+        if rule is not None:
+            raise InjectedDiskError(f"injected {op} failure at {label}")
 
     def on_device(self, phase: str) -> None:
         rule = self._fire(("device.fail",), phase)

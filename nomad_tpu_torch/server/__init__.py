@@ -10,7 +10,11 @@ solve. The job lifecycle's leader subsystems (:class:`DeploymentsWatcher`,
 :class:`NodeDrainer`, :class:`PeriodicDispatch`) and ``job_plan`` are host
 code too, as are the tenancy and cluster tables' pieces: the
 :class:`VolumeWatcher`, the :class:`AllocWatchHub`, the
-:class:`NodeRegisterBatcher` and ``search``.
+:class:`NodeRegisterBatcher` and ``search``. Replication and the cluster
+(``raft_replication``'s :class:`RaftNode`, ``raft_store``,
+``cluster``'s :class:`ClusterServer` with its endpoints, and
+``blackbox_wire``) are host code too; they are imported from their
+modules, as in ``nomad_tpu.server``.
 """
 
 from .blocked_evals import BlockedEvals

@@ -24,7 +24,7 @@ import time
 from typing import Optional
 
 from ..structs import Evaluation, Job, generate_uuid, now_ns
-from .raft import LeadershipLostError, NotLeaderError
+from .raft_replication import LeadershipLostError, NotLeaderError
 from ..structs.structs import (
     EVAL_STATUS_PENDING,
     EVAL_TRIGGER_PERIODIC_JOB,

@@ -5,11 +5,13 @@ hashicorp/raft): node (with drain and eligibility), job, eval, alloc
 (with desired transitions), plan-result, deployment (upsert, status,
 promotion, alloc health), summary-reconcile, ACL, namespace, volume
 (with the watcher's claim release), service, secret, scaling-event and
-operator-config entries. The snapshot-restore entry and the log's
-``entries_since`` / ``snapshot_bytes`` need a log that keeps entries,
-and come with replication. `InmemLog` is a single-node ordered log whose
-apply path runs through the same FSM dispatch a replicated deployment
-would use.
+operator-config entries, and the operator's snapshot restore (the
+state swaps at the entry's index on every replica). `InmemLog` is a
+single-node ordered log whose apply path runs through the same FSM
+dispatch the replicated log (raft_replication.py) uses. It keeps no
+entries, so the reference log's ``entries_since`` and
+``snapshot_bytes`` are not ported: nothing in either package calls
+them; replication and restart read RaftNode's own log.
 
 Every state mutation in the server goes through `raft_apply(type, payload)`
 — nothing writes the state store directly — exactly the reference's
@@ -25,20 +27,6 @@ from .. import trace
 from ..gctune import paused_gc
 from ..state import StateStore
 from ..structs import Allocation, Deployment, Evaluation, PlanResult
-
-
-class NotLeaderError(Exception):
-    """A write reached a server that is not (or no longer) the leader.
-    The single-node log never raises it; the workers treat it as a
-    leadership-churn signal and back off before the next attempt."""
-
-
-class LeadershipLostError(NotLeaderError):
-    """Leadership was lost after the entry was submitted: the write's
-    outcome is unknown — it may still commit under the next leader
-    (reference raft ErrLeadershipLost). The port has no replicated log
-    yet, so nothing raises it; the periodic dispatcher tells it apart
-    from a pre-submit NotLeaderError, as nomad_tpu's does."""
 
 
 class FSM:
@@ -59,6 +47,11 @@ class FSM:
         self.on_volume_release: Optional[Callable] = None  # blocked-eval poke
         self._handlers = {
             "noop": lambda index, payload: None,  # leader election barrier
+            # operator snapshot restore rides the log so every replica
+            # swaps state at the same point (reference SnapshotRestore);
+            # indexes rebase to the log entry's index so monotonicity
+            # holds regardless of where the snapshot came from
+            "snapshot_restore": self._apply_snapshot_restore,
             "node_register": self._apply_node_register,
             # fleet-scale batch forms: one raft entry covers N nodes
             # (a fleet's registration, a heartbeat-wheel expiry storm —
@@ -220,6 +213,10 @@ class FSM:
         self.state.update_alloc_desired_transition(index, transitions, evals)
         if evals and self.on_eval_update:
             self.on_eval_update(evals)
+
+    def _apply_snapshot_restore(self, index: int, data: bytes) -> None:
+        self.state.restore_from(data)
+        self.state.rebase_indexes(index)
 
     def _apply_plan_results(self, index: int, result: PlanResult) -> None:
         self.state.upsert_plan_results(index, result)

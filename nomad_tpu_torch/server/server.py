@@ -21,9 +21,11 @@ bootstrapped at leadership), ACL policies and tokens with
 watcher, service registrations, secrets and Vault task tokens, the event
 stream (every store write published to ``event_broker``), the alloc
 watch hub behind ``get_client_allocs`` and the node-register batcher.
-The metrics providers (they feed the agent's ``/v1/metrics``), the
-replay barrier and ``set_raft_applier`` (they come with replication)
-stay with the reference.
+Replication plugs in through ``set_raft_applier`` (the cluster layer
+routes every ``raft_apply`` through its RaftNode) and ``replay_barrier``
+(``establish_leadership`` waits until the local store has applied the
+new leader's barrier entry). The metrics providers (they feed the
+agent's ``/v1/metrics``) stay with the reference.
 
 Every mutation flows through raft_apply. The endpoint methods here are
 what an RPC layer would call.
@@ -319,11 +321,46 @@ class Server:
         self.fsm.on_job_upsert = self._on_job_upsert
         self.fsm.on_volume_release = self.blocked_evals.unblock_all
         self._leader = False
+        # Replicated deployments install a replay barrier (cluster.py →
+        # RaftNode.wait_for_replay): establish_leadership must not
+        # rebuild broker state from a MID-REPLAY store or it re-enqueues
+        # evaluations whose plans are still in the unapplied log tail —
+        # the scheduler would then re-place them (duplicate allocs).
+        # None (single-node InmemLog) ⇒ state is applied synchronously,
+        # nothing to wait for.
+        self.replay_barrier: Optional[object] = None
 
     # -- lifecycle -----------------------------------------------------
 
     def establish_leadership(self) -> None:
-        """Enable leader-only subsystems (reference leader.go:224)."""
+        """Enable leader-only subsystems (reference leader.go:224).
+
+        The replay barrier runs FIRST: on a replicated server nothing
+        leader-only comes up until the local FSM has applied this
+        leadership's own barrier entry (reference leader.go Barrier).
+        Without it, subsystems start against a MID-REPLAY store — a
+        pending eval from the unapplied tail gets scheduled against
+        state that lacks its job's existing allocs and mints duplicates.
+        Side channels are also gated by _leader, so entries applied
+        during the wait are silently skipped and then swept up by the
+        post-barrier _restore_evals / subsystem starts, which all read
+        the now-caught-up store."""
+        caught_up = True
+        if self.replay_barrier is not None:
+            try:
+                caught_up = self.replay_barrier()
+            except Exception:
+                logger.exception("replay barrier failed")
+                caught_up = False
+        if not caught_up:
+            # Deposed during the wait (a revoke is queued right behind
+            # this event) — still enable everything so the transitions
+            # stay strictly alternating, but don't trust the state for
+            # eval restore; the next leader restores instead.
+            logger.warning(
+                "establishing leadership without a caught-up log "
+                "(leadership churn during recovery)"
+            )
         self.eval_broker.set_enabled(True)
         self.plan_queue.set_enabled(True)
         self.blocked_evals.set_enabled(True)
@@ -347,18 +384,20 @@ class Server:
         )
         self._gc_thread.start()
         self._leader = True
-        self._restore_evals()
-        # Arm a liveness TTL for every node we believe is alive
-        # (reference heartbeat.go initializeHeartbeatTimers): node TTL
-        # timers are leader-local state and died with the old leader.
-        try:
-            self.heartbeaters.initialize(
-                n.id
-                for n in self.state.nodes()
-                if n.status != NODE_STATUS_DOWN
-            )
-        except Exception:
-            logger.exception("heartbeat timer initialization failed")
+        if caught_up:
+            self._restore_evals()
+            # Arm a liveness TTL for every node we believe is alive
+            # (reference heartbeat.go initializeHeartbeatTimers): node
+            # TTL timers are leader-local state and died with the old
+            # leader.
+            try:
+                self.heartbeaters.initialize(
+                    n.id
+                    for n in self.state.nodes()
+                    if n.status != NODE_STATUS_DOWN
+                )
+            except Exception:
+                logger.exception("heartbeat timer initialization failed")
         # Bootstrap the default namespace (reference leader.go
         # establishLeadership creates it so it always lists).
         try:
@@ -410,15 +449,29 @@ class Server:
 
     # -- raft ----------------------------------------------------------
 
+    def set_raft_applier(self, applier, applier_async=None) -> None:
+        """Swap the single-node InmemLog for a replicated log (the cluster
+        layer installs RaftNode.apply). Every subsystem routes through
+        raft_apply, so nothing else changes. applier_async is the
+        submit-without-waiting variant the plan applier pipelines on."""
+        self._raft_applier = applier
+        self._raft_applier_async = applier_async
+
     def raft_apply(self, msg_type: str, payload) -> int:
+        applier = getattr(self, "_raft_applier", None)
         # the trace's terminal hop: broker dequeue → ... → raft apply
         # (trace.span no-ops on an untraced thread)
         with trace.span(trace.current(), "raft.apply", type=msg_type):
+            if applier is not None:
+                return applier(msg_type, payload)
             return self.log.apply(msg_type, payload)
 
     def raft_apply_async(self, msg_type: str, payload):
         """Submit a raft entry and return (index, wait_fn) without
         blocking on the commit."""
+        applier = getattr(self, "_raft_applier_async", None)
+        if applier is not None:
+            return applier(msg_type, payload)
         return self.log.apply_async(msg_type, payload)
 
     # -- FSM side channels --------------------------------------------

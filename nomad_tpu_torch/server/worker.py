@@ -34,7 +34,7 @@ from ..scheduler import new_scheduler
 from ..scheduler.context import SchedulerConfig
 from ..structs import Evaluation, Plan, PlanResult
 from .. import faultplane
-from .raft import NotLeaderError
+from .raft_replication import NotLeaderError
 
 logger = logging.getLogger("nomad_tpu_torch.worker")
 

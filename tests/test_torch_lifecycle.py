@@ -365,8 +365,8 @@ def test_periodic_ambiguous_raft_failure_keeps_reservation():
     (not reserved, not yet in state) and silently upsert over the
     late-committing child. A pre-submit NotLeaderError is known not to
     have reached the log and releases the id."""
-    from nomad_tpu_torch.server.raft import (LeadershipLostError,
-                                             NotLeaderError)
+    from nomad_tpu_torch.server.raft_replication import (
+        LeadershipLostError, NotLeaderError)
 
     p = Pipe()
     job = mock.job()
