@@ -4721,31 +4721,49 @@ def pool_failover(pc: dict, live: int, n_jobs: int = 24,
     """A faultplane drop on one member's SolverPool.Solve (both of the
     ConnPool's attempts of one call): that batch is exactly one member
     fault and one device_failover, re-solved by solve_host_fallback;
-    every later batch goes to the surviving member; every alloc placed.
+    every batch picked while the failing member cools (FAULT_COOLDOWN_S
+    from its fault) goes to the surviving member; every alloc placed.
+    A run that outlasts the cooldown may route later batches back to
+    the healed member: they must then solve there without a fault. Each
+    pick is timed around SolverPool._pick: a pick counts as made while
+    cooling when its whole window lies inside the cooldown, and a pick
+    of the failing member as healed when it ends after the cooldown.
     The worker restarts unpipelined first: a pipelined solve stage can
     dispatch its next batch before the failing call's thread records
     the fault, and pick the failing member again when both are busy."""
     from nomad_tpu_torch import faultplane, metrics
-    from nomad_tpu_torch.server.solver_pool import RemotePendingBatch
+    from nomad_tpu_torch.server.solver_pool import (
+        FAULT_COOLDOWN_S, RemotePendingBatch,
+    )
 
     srv, lead = pc["srv"], pc["leader"]
     w = srv.tpu_worker
     w.stop()
     w.pipeline = False
     w.start()
-    victim = lead.solver_pool._pick()[0]
+    pool = lead.solver_pool
+    victim = pool._pick()[0]
     survivor = [m.node_id for m in pc["members"] if m.node_id != victim][0]
-    before = lead.solver_pool.stats_snapshot()
+    before = pool.stats_snapshot()
     rows0 = {r["id"]: r for r in before["members"]}
     calls = []
+    picks = []  # (member id or None, monotonic before, monotonic after)
     real = RemotePendingBatch.solve_host_fallback
+    real_pick = pool._pick
 
     def counted(self):
         calls.append(len(self._evals))
         return real(self)
 
+    def timed_pick():
+        t0 = time.monotonic()
+        got = real_pick()
+        picks.append((got and got[0], t0, time.monotonic()))
+        return got
+
     m0 = metrics.snapshot()["counters"]
     RemotePendingBatch.solve_host_fallback = counted
+    pool._pick = timed_pick
     plane = faultplane.install(faultplane.FaultPlane(seed=0))
     for node in [lead] + pc["members"]:
         plane.register_addr(node.node_id, node.rpc.addr)
@@ -4757,8 +4775,9 @@ def pool_failover(pc: dict, live: int, n_jobs: int = 24,
     finally:
         faultplane.uninstall()
         RemotePendingBatch.solve_host_fallback = real
+        del pool._pick
     m1 = metrics.snapshot()["counters"]
-    after = lead.solver_pool.stats_snapshot()
+    after = pool.stats_snapshot()
     rows1 = {r["id"]: r for r in after["members"]}
     faults = after["faults"] - before["faults"]
     failovers = (m1.get("nomad.worker.device_failover", 0)
@@ -4769,14 +4788,35 @@ def pool_failover(pc: dict, live: int, n_jobs: int = 24,
     check(faults == 1, f"{faults} member faults, want exactly 1")
     check(failovers == 1, f"{failovers} device failovers, want exactly 1")
     check(len(calls) == 1, f"solve_host_fallback ran {len(calls)} times")
-    check(to_victim == 1, f"{to_victim} batches went to the failing member")
-    check(to_survivor >= 1, "no later batch went to the surviving member")
+    fault_until = pool._fault_until[victim]
+    fault_at = fault_until - FAULT_COOLDOWN_S
+    at_victim = [(t0, t1) for mid, t0, t1 in picks if mid == victim]
+    pre_fault = sum(t1 <= fault_at for _, t1 in at_victim)
+    healed = sum(t1 >= fault_until for _, t1 in at_victim)
+    while_cooling = [mid for mid, t0, t1 in picks
+                     if t0 >= fault_at and t1 < fault_until]
+    check(to_victim == len(at_victim),
+          f"{to_victim} dispatches to the failing member, "
+          f"{len(at_victim)} picks of it")
+    check(to_survivor == sum(mid == survivor for mid, _, _ in picks),
+          f"{to_survivor} dispatches to the surviving member do not match "
+          "its picks")
+    check(pre_fault == 1,
+          f"{pre_fault} batches went to the failing member before its fault")
+    check(all(mid == survivor for mid in while_cooling),
+          f"picks while the failing member cooled: {while_cooling}")
+    check(pre_fault + healed == len(at_victim),
+          "a pick of the failing member fell inside its cooldown")
+    check(to_survivor >= 1 or not while_cooling,
+          "no later batch went to the surviving member")
     check(after["fallback_local"] == before["fallback_local"],
           "a batch fell back to the leader's own solve")
     check_server_state(srv, live + n_jobs * count)
     return {"wall_s": wall, "victim": victim, "member_faults": faults,
             "failovers": failovers, "fallback_evals": calls[0],
-            "to_survivor": to_survivor, "rpc_drops": plane.fired}
+            "to_survivor": to_survivor, "to_victim_after_cooldown": healed,
+            "picks_while_cooling": len(while_cooling),
+            "cooldown_s": FAULT_COOLDOWN_S, "rpc_drops": plane.fired}
 
 
 def pool_lockstep(device: str, n_nodes: int, n_jobs: int, count: int,
