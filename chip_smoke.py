@@ -256,13 +256,50 @@ Phases (one JSON line each, with its seconds):
                 next leader), no raft log compacted, K1 once for every
                 compact solve before and after the failover, both
                 leaders' resident tensors and every tensor of their K1-K3
-                calls on cuda:0; the store's serialize() bytes and
-                seconds beside MAX_FRAME (a number to record); shutdown
+                calls on cuda:0; the serialize() bytes and seconds of
+                the store cut to its first 4,000 nodes and 40 jobs with
+                their allocs (SNAPSHOT, scripts/snapshot_bytes.py's
+                defaults) beside MAX_FRAME (a number to record); shutdown
                 leaves no batch-worker thread. No client runs: each
                 server's heartbeat TTL floor is an hour; the heap the
                 earlier phases left is frozen out of the collector while
                 the cluster runs (FrozenHeap);
-  11. mesh    — the node-sharded route (kernels also checks the sharded
+  11. agent   — the operator's front door (nomad_tpu's jobspec/parse.py,
+                acl/enforce.py, api/, agent/ and cli/, ported) as an
+                operator drives it: one server agent (Agent with
+                server_enabled, use_tpu_batch_worker, device "cuda", a
+                durable raft log in a temp dir; no client runs, so its
+                heartbeat TTL floor is an hour), its batch worker in
+                batches of 8 as in the server phase. agent.setup: the
+                agent boots and leads; c2m's 10,000 nodes through its
+                Node.register over the fabric from 32 threads.
+                agent.c2m: c2m's job (make_job's shape) written as HCL
+                (C2M_HCL), the first through the CLI's `job plan`
+                in-process (exit 1: changes; its ms), then all 100 through
+                `job run -detach -address http://...`, one after another,
+                with one /v1/event/stream subscriber (Job and Allocation
+                topics) running; the wait is blocking queries on
+                /v1/evaluations?index= with the store polled beside them
+                (an eval sitting out the nack delay). It prints the wall
+                from the first register to the last eval complete,
+                jobs/s, allocs/s, the CLI's ms per job, the blocking
+                queries, K1-K3 launches and resident syncs, and the
+                summed batch spans. agent.read: `job status` of one job
+                through the CLI; /v1/job/<id>/allocations for all 100 jobs
+                through NomadClient (100,000 allocs: bytes, HTTP seconds,
+                decode seconds), each job's allocs equal to the store's
+                alloc for alloc; /v1/metrics as JSON and as Prometheus
+                text (the nomad.broker, nomad.plan_queue, nomad.workers
+                and nomad.fleet providers with their live values); the
+                subscriber's events by topic and type; `operator solver
+                status` through the CLI (K1's launches and shapes in its
+                ledger, the card's memory). Then: every eval complete,
+                100,000 live allocs, no node over capacity, no device
+                failover or failed batch, K1 once for every compact solve,
+                the resident tensors and every K1/K2 tensor on cuda:0, and
+                no thread the phase started left after the agent's
+                shutdown;
+  12. mesh    — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -276,7 +313,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  12. replay  — each kernel's first call on its path replayed against its
+  13. replay  — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -294,8 +331,9 @@ Phases (one JSON line each, with its seconds):
                 (`lifecycle`, `lifecycle_copy`), K1 at the tenancy
                 phase's first masked call (`tenancy`, with the nodes its
                 live groups may place on), K1-K3 at the cluster phase's
-                first calls (`cluster`);
-  13. small   — the same three waves at 200 nodes, and at 500 nodes on
+                first calls (`cluster`), K1 (and K2, where it ran) at
+                the agent phase's (`agent`);
+  14. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
@@ -315,19 +353,26 @@ Phases (one JSON line each, with its seconds):
                 through a follower with its eval complete before the
                 next, a leader kill, more jobs, a restart, one job scaled;
                 cluster_lockstep, which tests/test_torch_cluster.py also
-                runs against nomad_tpu's ClusterServer), on the card and
-                on the CPU twins: identical placements, victims, eval
-                outcomes, chain verdicts, plans, deployments, job
-                versions, drain marks, claims, services, scaling policies
-                and events, ACL and secret tables and the event sequence,
-                and every cluster server's store equal to the others'.
+                runs against nomad_tpu's ClusterServer), and the server
+                agent at 200 nodes (AGENT_SMALL: six HCL jobs of 50
+                through the CLI's `job run`, each eval complete before
+                the next, then a fixed list of HTTP reads;
+                agent_lockstep, which tests/test_torch_agent.py also runs
+                against nomad_tpu's agent), on the card and on the CPU
+                twins: identical placements, victims, eval outcomes,
+                chain verdicts, plans, deployments, job versions, drain
+                marks, claims, services, scaling policies and events, ACL
+                and secret tables and the event sequence, every cluster
+                server's store equal to the others', and the agent's HTTP
+                bodies with minted ids named by what they name.
 
 Then the card's name and power limit (nvidia-smi), one {"kernels": [...]}
 line (K1-K3 also carry `server_launches`, their count in the server
 phase; every kernel `pool_launches`, its count in pool.c2m, and
 `lifecycle_launches`, its count in the lifecycle phase,
-`tenancy_launches`, its count in the tenancy phase, and
-`cluster_launches`, its count in the cluster phase; K1 and K2 `pool`,
+`tenancy_launches`, its count in the tenancy phase,
+`cluster_launches`, its count in the cluster phase, and
+`agent_launches`, its count in the agent phase; K1 and K2 `pool`,
 each member's first call held and timed), and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is nonzero and no
 result line is printed. Without a CUDA
@@ -4045,12 +4090,8 @@ def cluster_scenario(device: str, cfg: dict, on_step) -> dict:
                   for s in cluster.servers.values()),
               "cluster: a raft log compacted")
         out["log_entries"] = lead.raft.last_index
-        t0 = time.perf_counter()
-        snap = lead.server.state.serialize()
-        out["snapshot"] = {"bytes": len(snap),
-                           "seconds": time.perf_counter() - t0,
-                           "max_frame": MAX_FRAME}
-        del snap
+        out["snapshot"] = snapshot_sample(lead.server.state, SNAPSHOT,
+                                          MAX_FRAME)
         out["fastpack_live"] = codec.native_module() is not None
     finally:
         syncs.restore()
@@ -4063,6 +4104,43 @@ def cluster_scenario(device: str, cfg: dict, on_step) -> dict:
     out["leaked_workers"] = sorted(t.name for t in
                                    worker_threads() - threads_before)
     return out
+
+
+# serialize() is timed on a store cut to scripts/snapshot_bytes.py's
+# defaults, 4,000 nodes and 40 jobs: the whole c2m store's took 88-115 s
+# of a run (PR 12), and 4,000 of its nodes with every job's allocs on
+# them (64,000) 96.6 s
+SNAPSHOT = {"nodes": 4000, "jobs": 40}
+
+
+def snapshot_sample(state, cut: dict, max_frame: int) -> dict:
+    """StateStore.serialize() bytes and seconds for a fresh store holding
+    the first cut["nodes"] of `state`'s nodes, its first cut["jobs"]
+    jobs and their allocs on those nodes (a number to record)."""
+    from nomad_tpu_torch.state import StateStore
+
+    nodes = [n.copy() for n in state.nodes()[:cut["nodes"]]]
+    jobs = [j.copy() for j in state.jobs()[:cut["jobs"]]]
+    keep_nodes = {n.id for n in nodes}
+    keep_jobs = {j.id for j in jobs}
+    allocs = [a.copy() for a in state.allocs()
+              if a.node_id in keep_nodes and a.job_id in keep_jobs]
+    store = StateStore()
+    index = 1
+    for n in nodes:
+        store.upsert_node(index, n)
+        index += 1
+    for j in jobs:
+        store.upsert_job(index, j)
+        index += 1
+    for i in range(0, len(allocs), 1000):
+        store.upsert_allocs(index, allocs[i:i + 1000])
+        index += 1
+    t0 = time.perf_counter()
+    raw = store.serialize()
+    return {"nodes": len(nodes), "jobs": len(jobs), "allocs": len(allocs),
+            "bytes": len(raw),
+            "seconds": time.perf_counter() - t0, "max_frame": max_frame}
 
 
 def check_cluster_run(res) -> None:
@@ -4095,6 +4173,564 @@ def check_cluster_run(res) -> None:
     check(not res["leaked_workers"],
           f"cluster: worker threads left after shutdown: "
           f"{res['leaked_workers']}")
+
+
+# ---------------------------------------------------------------------------
+# the operator's front door: a server agent with its HTTP API, c2m's jobs
+# as HCL through the CLI's `job run`, an operator's reads over HTTP
+# ---------------------------------------------------------------------------
+
+# the agent phase at c2m's width: the fleet through the agent's fabric
+# from 32 threads (as cluster.setup registers it), 100 jobs of 1,000
+AGENT = {"nodes": 10000, "jobs": 100, "count": 1000, "threads": 32}
+# agent_lockstep's size: 200 nodes, six jobs of 50, each eval complete
+# before the next job is submitted
+AGENT_SMALL = {"nodes": 200, "jobs": 6, "count": 50}
+# the reads agent_lockstep compares, per job and once for the run
+AGENT_JOB_READS = ("/v1/job/{id}", "/v1/job/{id}/allocations",
+                   "/v1/job/{id}/summary", "/v1/job/{id}/evaluations",
+                   "/v1/job/{id}/versions")
+AGENT_READS = ("/v1/jobs", "/v1/nodes", "/v1/allocations",
+               "/v1/evaluations", "/v1/deployments")
+# c2m's job (bench.py add_jobs, make_job) as an operator writes it
+C2M_HCL = """job "{id}" {{
+  datacenters = ["dc1", "dc2", "dc3", "dc4"]
+
+  constraint {{
+    attribute = "${{attr.kernel.name}}"
+    value     = "linux"
+  }}
+
+  spread {{
+    attribute = "${{node.datacenter}}"
+    weight    = 50
+  }}
+
+  group "web" {{
+    count = {count}
+
+    task "web" {{
+      driver = "exec"
+
+      resources {{
+        cpu    = 250
+        memory = 128
+      }}
+    }}
+  }}
+}}
+"""
+# the providers /v1/metrics must carry, each with the key it is read by
+AGENT_PROVIDERS = {"nomad.broker": "total_ready",
+                   "nomad.plan_queue": "depth",
+                   "nomad.workers": "processed",
+                   "nomad.fleet": "nodes_ready"}
+
+
+def write_jobs(root: str, n_jobs: int, count: int, prefix: str) -> list:
+    """One HCL jobfile per job under root: [(job id, path)]."""
+    import os
+
+    out = []
+    for j in range(n_jobs):
+        job_id = f"{prefix}-{j}"
+        path = os.path.join(root, f"{job_id}.nomad")
+        with open(path, "w") as f:
+            f.write(C2M_HCL.format(id=job_id, count=count))
+        out.append((job_id, path))
+    return out
+
+
+def run_cli(cli_main, *argv) -> tuple:
+    """A CLI command in this process: (exit code, its standard output,
+    seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def submitted_eval(out: str) -> str:
+    m = re.search(r"Evaluation ID: (\S+)", out)
+    check(m is not None, f"job run printed no evaluation id: {out!r}")
+    return m.group(1)
+
+
+def start_agent(device: str, data_dir: str, every_solve: bool = False):
+    """The port's server agent (nomad_tpu_torch.agent): the GPU batch
+    worker on `device` in batches of SERVER_BATCH (every_solve: with
+    small_batch_threshold 0, so no batch takes the host route), a
+    durable raft log under data_dir, the heartbeat TTL floor an hour (no
+    client runs); returns it once its server leads and its leadership is
+    established."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
+    agent = Agent(AgentConfig(
+        server_enabled=True, use_tpu_batch_worker=True, device=device,
+        data_dir=data_dir, node_name="agent-0"))
+    if every_solve:
+        agent.server.server.scheduler_config.small_batch_threshold = 0
+    cluster_tune(agent.server)
+    agent.start()
+    cluster_wait(lambda: agent.server.is_leader()
+                 and agent.server.server._leader,
+                 "agent: no established leader", 120)
+    return agent
+
+
+def live_threads() -> set:
+    return {t for t in threading.enumerate() if t.is_alive()}
+
+
+class EventCounter:
+    """One /v1/event/stream subscriber (Job and Allocation topics) on a
+    thread of its own: counts the frames' events by (topic, type), the
+    payloads left undecoded. `ended` says the server ended the stream
+    before close(): a subscriber whose cursor falls off the broker's
+    ring is closed (SubscriptionClosedError), as in the reference."""
+
+    def __init__(self, addr: str) -> None:
+        import http.client
+        import socket
+        import urllib.parse
+
+        self.counts: dict = {}
+        self.frames = 0
+        self.error = None
+        self.ended = False
+        url = urllib.parse.urlparse(addr)
+        # the socket is kept so close() can end a read blocked on it
+        self.sock = socket.create_connection((url.hostname, url.port),
+                                             timeout=600)
+        self.sock.sendall(
+            b"GET /v1/event/stream?topic=Job:*&topic=Allocation:* "
+            b"HTTP/1.1\r\nHost: agent\r\n\r\n")
+        self.resp = http.client.HTTPResponse(self.sock)
+        self.resp.begin()
+        self.thread = threading.Thread(target=self._run,
+                                       name="agent-events", daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            for line in self.resp:
+                line = line.strip()
+                if not line or line == b"{}":
+                    continue
+                frame = json.loads(line)
+                self.frames += 1
+                for ev in frame.get("Events", ()):
+                    key = f"{ev['Topic']}.{ev['Type']}"
+                    self.counts[key] = self.counts.get(key, 0) + 1
+            self.ended = True
+        except Exception as e:  # the stream ends with close()
+            self.error = f"{type(e).__name__}: {e}"
+
+    def close(self) -> None:
+        """Disconnect: the agent's stream handler sees the peer gone at
+        its next liveness probe (an agent's shutdown does not end an open
+        stream, as in nomad_tpu)."""
+        import socket
+
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.thread.join(30)
+        self.sock.close()
+
+
+def wait_evals_http(api, state, eval_ids: list, timeout_s: float) -> dict:
+    """Wait until every eval in eval_ids is complete, through blocking
+    queries on /v1/evaluations?index=: each returns when the evals
+    table moves past the index it was given. The store is polled too,
+    so an eval sitting out the broker's nack delay (whose table does not
+    move) is seen once it completes. Returns the blocking queries made
+    and their seconds."""
+    want = set(eval_ids)
+    index, queries, spent = 0, 0, 0.0
+    deadline = time.monotonic() + timeout_s
+    while True:
+        t0 = time.perf_counter()
+        evals, index = api.get_with_index(
+            "/v1/evaluations", params={"index": index, "wait": "2s"})
+        spent += time.perf_counter() - t0
+        queries += 1
+        done = {e.id for e in evals if e.id in want
+                and e.status == "complete"}
+        if done == want or all(state.eval_by_id(i).status == "complete"
+                               for i in want):
+            return {"blocking_queries": queries, "blocking_s": spent}
+        check(time.monotonic() < deadline,
+              f"agent: evals not complete after {timeout_s} s")
+
+
+def metric_gauges(snap: dict) -> dict:
+    return {p: {k[len(p) + 1:]: v for k, v in snap["gauges"].items()
+                if k.startswith(p + ".")} for p in AGENT_PROVIDERS}
+
+
+def agent_scenario(device: str, cfg: dict, on_step) -> dict:
+    """The agent phase (AGENT) on one server agent with the GPU batch
+    worker on `device`: agent.setup, agent.c2m, agent.read (module
+    docstring, phase 11). Launch counters zeroed just before the first
+    job plan and read after the last eval completes."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch import codec, metrics, solverobs
+    from nomad_tpu_torch.api import NomadClient
+    from nomad_tpu_torch.cli.main import main as cli_main
+    from nomad_tpu_torch.metrics import Registry
+    from nomad_tpu_torch.rpc import ConnPool
+    from nomad_tpu_torch.solverobs import SolverObservatory
+
+    metrics._install_registry(Registry())
+    solverobs._install(SolverObservatory())
+    trace.clear_finished()
+    threads_before = live_threads()
+    root = tempfile.mkdtemp(prefix="agent-c2m-")
+    syncs = SyncLog()
+    out: dict = {"steps": {}}
+    steps = out["steps"]
+    n_nodes, count, n_jobs = cfg["nodes"], cfg["count"], cfg["jobs"]
+    pool = ConnPool()
+    agent = events = None
+    try:
+        # agent.setup
+        t0 = time.perf_counter()
+        agent = start_agent(device, root + "/data")
+        lead_s = time.perf_counter() - t0
+        srv = agent.server.server
+        addr = "http://{}:{}".format(*agent.http_addr)
+        api = NomadClient(addr)
+        nodes = c2m_nodes(n_nodes)
+        errors = []
+
+        def register(k):
+            try:
+                for n in nodes[k::cfg["threads"]]:
+                    pool.call(agent.server.addr, "Node.register",
+                              {"node": n}, timeout_s=60.0)
+            except Exception as e:  # surfaced by the check below
+                errors.append(repr(e))
+
+        t_reg = time.perf_counter()
+        ts = [threading.Thread(target=register, args=(k,))
+              for k in range(cfg["threads"])]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        check(not errors, f"agent: node registration failed: {errors[:3]}")
+        cluster_wait(lambda: len(srv.state.nodes()) == n_nodes,
+                     "agent: the fleet did not register", 300)
+        reg_s = time.perf_counter() - t_reg
+        steps["setup"] = {"wall_s": time.perf_counter() - t0,
+                          "leader_s": lead_s, "register_s": reg_s,
+                          "nodes": len(srv.state.nodes())}
+        on_step("agent.setup", steps["setup"]["wall_s"],
+                **{k: v for k, v in steps["setup"].items()
+                   if k != "wall_s"})
+
+        # agent.c2m: one job plan, then every job through `job run`
+        jobs = write_jobs(root, n_jobs, count, "ag")
+        events = EventCounter(addr)
+        tk.reset_launch_counts()
+        m0, y0 = metrics.snapshot(), syncs.total
+        plan_rc, plan_out, plan_s = run_cli(
+            cli_main, "-address", addr, "job", "plan", jobs[0][1])
+        check(plan_rc == 1, f"agent: job plan exited {plan_rc}, want 1 "
+              f"(changes): {plan_out[-500:]!r}")
+        check(f"({count} create)" in plan_out,
+              f"agent: job plan did not report {count} creates")
+        t_c2m = time.perf_counter()
+        eval_ids, cli_s = [], 0.0
+        for job_id, path in jobs:
+            rc, text, secs = run_cli(cli_main, "-address", addr, "job",
+                                     "run", "-detach", path)
+            check(rc == 0, f"agent: job run {job_id} exited {rc}")
+            eval_ids.append(submitted_eval(text))
+            cli_s += secs
+        submit_s = time.perf_counter() - t_c2m
+        waited = wait_evals_http(api, srv.state, eval_ids, 900)
+        wall = time.perf_counter() - t_c2m
+        out["launches"] = launch_counts()
+        m1 = metrics.snapshot()
+        traces = batch_traces()
+        trace.clear_finished()
+        c2m = wave_numbers(m0, m1, traces, wall, n_jobs, n_jobs * count)
+        c2m.update(waited, plan_rc=plan_rc, plan_ms=1e3 * plan_s,
+                   submit_s=submit_s, cli_ms_per_job=1e3 * cli_s / n_jobs,
+                   launches=out["launches"],
+                   resident_syncs=syncs.total - y0)
+        steps["c2m"] = c2m
+        on_step("agent.c2m", wall,
+                **{k: v for k, v in c2m.items() if k != "wall_s"})
+        check_server_state(srv, n_jobs * count)
+        out["counters"] = m1["counters"]
+        out["eval_ids"] = eval_ids
+
+        # agent.read: an operator's reads
+        t_read = time.perf_counter()
+        rc, text, st_s = run_cli(cli_main, "-address", addr, "job",
+                                 "status", jobs[0][0])
+        check(rc == 0 and "Allocations" in text,
+              f"agent: job status exited {rc}")
+        # every job's allocs over HTTP, compared with the store on the
+        # JSON; the first job's also decoded into structs as the SDK's
+        # jobs.allocations() does (timed: the client's share)
+        http_bytes, http_s, allocs_read = 0, 0.0, 0
+        decode_s = decoded = None
+        for job_id, _ in jobs:
+            t0 = time.perf_counter()
+            resp = api.get(f"/v1/job/{job_id}/allocations", raw=True)
+            raw = resp.read()
+            http_s += time.perf_counter() - t0
+            http_bytes += len(raw)
+            got = json.loads(raw)
+            if decode_s is None:
+                t0 = time.perf_counter()
+                decoded = len(codec.from_wire(got))
+                decode_s = time.perf_counter() - t0
+            allocs_read += len(got)
+            want = {(a.id, a.node_id, a.name, a.desired_status,
+                     a.client_status) for a in srv.state.allocs_by_job(
+                         "default", job_id)}
+            check({(a["id"], a["node_id"], a["name"], a["desired_status"],
+                    a["client_status"]) for a in got} == want,
+                  f"agent: the allocs of {job_id} read over HTTP differ "
+                  "from the store")
+        # the CLI's own cost on the quiet agent: building its parser
+        # (`version`) and parsing one c2m jobfile, medians of 5
+        with open(jobs[0][1]) as f:
+            hcl = f.read()
+        from nomad_tpu_torch.jobspec import parse_job
+
+        version_ms = 1e3 * statistics.median(
+            run_cli(cli_main, "version")[2] for _ in range(5))
+        parse_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            parse_job(hcl)
+            parse_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        snap = api.agent.metrics()
+        metrics_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prom = api.agent.metrics_prometheus()
+        prom_s = time.perf_counter() - t0
+        gauges = metric_gauges(snap)
+        rc, solver_text, solver_s = run_cli(cli_main, "-address", addr,
+                                            "operator", "solver", "status")
+        check(rc == 0, f"agent: operator solver status exited {rc}")
+        ledger = api.agent.solver_status()
+        read = {"job_status_ms": 1e3 * st_s, "allocs_read": allocs_read,
+                "allocs_bytes": http_bytes, "allocs_http_s": http_s,
+                "allocs_decoded": decoded, "allocs_decode_s": decode_s,
+                "cli_version_ms": version_ms,
+                "hcl_parse_ms": statistics.median(parse_ms),
+                "metrics_ms": 1e3 * metrics_s, "prometheus_ms": 1e3 * prom_s,
+                "prometheus_bytes": len(prom.encode()),
+                "solver_status_ms": 1e3 * solver_s,
+                "providers": {p: {k: v for k, v in g.items()
+                                  if k == AGENT_PROVIDERS[p]}
+                              for p, g in gauges.items()},
+                "events": dict(sorted(events.counts.items())),
+                "event_frames": events.frames,
+                "event_stream_closed_by_server": events.ended}
+        steps["read"] = read
+        on_step("agent.read", time.perf_counter() - t_read,
+                **{k: v for k, v in read.items()})
+        out.update(gauges=gauges, prom=prom, solver_text=solver_text,
+                   ledger=ledger, allocs_read=allocs_read,
+                   events=dict(events.counts))
+        out["resident"] = srv.tpu_worker._resident
+        out["fastpack_live"] = codec.native_module() is not None
+    finally:
+        syncs.restore()
+        t0 = time.perf_counter()
+        if agent is not None:
+            agent.shutdown()
+        if events is not None:
+            events.close()
+        pool.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+    # every thread the phase started ends with the agent: the batch
+    # worker's, the HTTP listener's and its handlers', the leader's
+    # watchers, the fabric's (an HTTP handler of a stream may take a
+    # moment to see its socket close)
+    deadline = time.monotonic() + 30
+    while live_threads() - threads_before and time.monotonic() < deadline:
+        time.sleep(0.1)
+    out["leaked_threads"] = sorted(t.name for t in
+                                   live_threads() - threads_before)
+    return out
+
+
+def check_agent_run(res) -> None:
+    """Every eval complete with its 100,000 allocs (checked in the run),
+    no device failover or failed batch, K1 once for every compact solve
+    and its resident tensors on cuda:0, the providers on /v1/metrics
+    with live values, the solver status showing K1's launches, and no
+    thread of the agent left after its shutdown. The event subscriber's
+    counts are numbers to record: a subscriber that falls off the
+    broker's ring is closed, and whether it does depends on its pace."""
+    c = res["counters"]
+    check(c.get("nomad.worker.device_failover", 0) == 0,
+          "agent: a device failover")
+    check(c.get("nomad.worker.invoke.failed", 0) == 0,
+          "agent: a batch failed to solve or commit")
+    s = res["steps"]["c2m"]
+    k1 = s["launches"]["solve_placement_compact"]
+    check(s["resident_syncs"] > 0 and k1 >= s["resident_syncs"],
+          f"agent: K1 ran {k1} times for {s['resident_syncs']} compact "
+          "solves")
+    cuda0 = torch.device("cuda", 0)
+    r = res["resident"]
+    check(r is not None and r._cap_dev.device == cuda0
+          and r._used_dev.device == cuda0,
+          "agent: the worker's resident tensors are not on cuda:0")
+    check(res["fastpack_live"], "agent: the C fastpack did not load")
+    g = res["gauges"]
+    check(all(g[p] for p in AGENT_PROVIDERS),
+          f"agent: /v1/metrics lacks providers: "
+          f"{[p for p in AGENT_PROVIDERS if not g[p]]}")
+    n_nodes, n_jobs = AGENT["nodes"], AGENT["jobs"]
+    check(g["nomad.fleet"].get("nodes_ready") == n_nodes,
+          f"agent: nomad.fleet.nodes_ready is "
+          f"{g['nomad.fleet'].get('nodes_ready')}, want {n_nodes}")
+    check(res["allocs_read"] == n_jobs * AGENT["count"],
+          f"agent: {res['allocs_read']} allocs read over HTTP")
+    check(g["nomad.workers"].get("processed", 0) >= n_jobs,
+          "agent: nomad.workers.processed counts fewer evals than jobs")
+    check(g["nomad.plan_queue"].get("depth") == 0,
+          "agent: the plan queue is not empty after the run")
+    for p in AGENT_PROVIDERS:
+        prom_name = p.replace(".", "_")
+        check(prom_name in res["prom"],
+              f"agent: the Prometheus text lacks {prom_name}")
+    kl = res["ledger"]["ledger"]["kernels"].get("solve_placement_compact")
+    check(kl is not None and kl["launches"] >= k1,
+          "agent: the solver status ledger lacks K1's launches")
+    row = [ln for ln in res["solver_text"].splitlines()
+           if ln.startswith("solve_placement_compact")]
+    check(row and str(kl["launches"]) in row[0].split(),
+          "agent: operator solver status does not show K1's launches")
+    check(res["ledger"]["device_memory"] is not None,
+          "agent: the solver status reports no card memory")
+    check(not res["leaked_threads"],
+          f"agent: threads left after shutdown: {res['leaked_threads']}")
+
+
+def agent_names(state) -> dict:
+    """Each id the server minted mapped to what names it: an alloc by
+    its job and name, an eval by its job, trigger and order, a
+    deployment by its job and version."""
+    names = {a.id: f"alloc:{a.job_id}/{a.name}" for a in state.allocs()}
+    seen: dict = {}
+    for e in sorted(state.evals(), key=lambda e: e.create_index):
+        k = seen[e.job_id] = seen.get(e.job_id, -1) + 1
+        names[e.id] = f"eval:{e.job_id}/{e.triggered_by}/{k}"
+    for d in state.deployments():
+        names[d.id] = f"deployment:{d.job_id}/{d.job_version}"
+    return names
+
+
+# fields that differ between two runs of the same operations: raft
+# indexes, wall-clock times and the nodes' heartbeat TTLs
+_VOLATILE = re.compile(r"(^|_)(index|time|at|ttl|ns)$|^wait_until$")
+
+
+def http_view(body, names: dict):
+    """A response body with each minted id replaced by what names it,
+    the volatile fields dropped, and lists of objects sorted."""
+    if isinstance(body, dict):
+        return {k: http_view(v, names) for k, v in body.items()
+                if not _VOLATILE.search(k)}
+    if isinstance(body, list):
+        items = [http_view(v, names) for v in body]
+        if items and all(isinstance(v, dict) for v in items):
+            items.sort(key=lambda v: json.dumps(v, sort_keys=True))
+        return items
+    if isinstance(body, str):
+        return names.get(body, body)
+    return body
+
+
+def agent_lockstep(boot, cli_main, nodes: list, cfg=AGENT_SMALL) -> dict:
+    """AGENT_SMALL through one server agent, one eval at a time.
+
+    boot() returns a started server agent (its batch worker in batches
+    of SERVER_BATCH with every solve on its solver, small_batch_threshold
+    0) and a ConnPool of one package; cli_main is that package's CLI
+    (the tests hand nomad_tpu's to the same function). Every node
+    registers over the agent's fabric; each job goes in as HCL through
+    `job run -detach` and its eval completes before the next. Returns
+    the placements (job, alloc name, node), the eval outcomes and the
+    bodies of AGENT_JOB_READS and AGENT_READS (http_view)."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    root = tempfile.mkdtemp(prefix="agent-lockstep-")
+    agent, pool = boot(root + "/data")
+    try:
+        srv = agent.server.server
+        addr = "http://{}:{}".format(*agent.http_addr)
+        for n in nodes:
+            pool.call(agent.server.addr, "Node.register", {"node": n},
+                      timeout_s=60.0)
+        cluster_wait(lambda: len(srv.state.nodes()) == len(nodes),
+                     "lockstep: the fleet did not register", 60)
+        jobs = write_jobs(root, cfg["jobs"], cfg["count"], "lock")
+        for job_id, path in jobs:
+            rc, text, _ = run_cli(cli_main, "-address", addr, "job", "run",
+                                  "-detach", path)
+            check(rc == 0, f"lockstep: job run {job_id} exited {rc}")
+            eval_id = submitted_eval(text)
+            cluster_wait(lambda: srv.state.eval_by_id(eval_id).status
+                         == "complete",
+                         f"lockstep: the eval of {job_id} never completed",
+                         120)
+        cluster_wait(lambda: srv.eval_broker.inflight_count() == 0
+                     and srv.plan_queue.depth() == 0,
+                     "lockstep: the broker did not drain", 60)
+        state = srv.state
+        names = agent_names(state)
+        reads = {}
+        paths = [p.format(id=job_id) for job_id, _ in jobs
+                 for p in AGENT_JOB_READS] + list(AGENT_READS)
+        for path in paths:
+            with urllib.request.urlopen(addr + path, timeout=60) as resp:
+                reads[path] = http_view(json.loads(resp.read()), names)
+        out = cluster_outcome(state)
+        out["allocs"] = sorted((a.job_id, a.name, a.node_id)
+                               for a in state.allocs()
+                               if not a.terminal_status())
+        out["reads"] = reads
+        return out
+    finally:
+        agent.shutdown()
+        pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def agent_small(device: str, nodes: list) -> dict:
+    """agent_lockstep on the port's server agent, the batch worker on
+    `device` with every solve on it (small_batch_threshold 0)."""
+    from nomad_tpu_torch.cli.main import main as cli_main
+    from nomad_tpu_torch.rpc import ConnPool
+
+    def boot(data_dir):
+        return start_agent(device, data_dir, every_solve=True), ConnPool()
+
+    return agent_lockstep(boot, cli_main, [n.copy() for n in nodes])
 
 
 # ---------------------------------------------------------------------------
@@ -5071,22 +5707,28 @@ def replay_dense(rec: dict, launches: dict, k4_placing: list) -> list:
 
 def device_split_ms(fn) -> dict:
     """Device milliseconds by kernel over one call, from torch.profiler's
-    CUDA activity (kernel names cut to their __global__ function)."""
+    CUDA activity (kernel names cut to their __global__ function). A
+    capture that recorded no kernel at all is taken again, up to three
+    times: the profiler once returned no device activity for a 0.05 ms
+    launch, which says nothing about which kernels ran."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        m = re.search(r"(\w+_kernel)", ev.key)
-        if us and m:
-            out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            m = re.search(r"(\w+_kernel)", ev.key)
+            if us and m:
+                out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3
+        if out:
+            break
     return out
 
 
@@ -5491,7 +6133,29 @@ def main() -> int:
           shutdown_s=cres["shutdown_s"])
     del cres
 
-    # 11. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 11. the operator's front door at c2m's width: one server agent,
+    #    c2m's fleet over its fabric, c2m's 100 jobs as HCL through the
+    #    CLI's job plan and job run, an operator's reads over HTTP;
+    #    launch counters zeroed just before the job plan and read after
+    #    the last eval completes
+    t_ag = time.perf_counter()
+    arec = server_recorders()
+    trace.set_enabled(True)
+    try:
+        ares = agent_scenario("cuda", AGENT, on_server)
+    finally:
+        trace.set_enabled(False)
+        for r in reversed(list(arec.values())):
+            r.restore()
+    agent_launches = ares["launches"]
+    check(all(t.is_cuda for r in arec.values() for t in r.tensors),
+          "a tensor of the agent path is on the host")
+    check_agent_run(ares)
+    phase("agent", t_ag, launches=agent_launches,
+          shutdown_s=ares["shutdown_s"])
+    del ares
+
+    # 12. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -5504,7 +6168,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 12. replay each path's calls against the twins, and time them
+    # 13. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -5550,14 +6214,26 @@ def main() -> int:
     kernels[names.index("scatter_rows")]["cluster_launches_copy"] = \
         cluster_launches["scatter_rows_copy"]
     del crec
+    ag_held = replay_server({k: r for k, r in arec.items()
+                             if agent_launches[k] > 0}, agent_launches)
+    check("solve_placement_compact" in ag_held,
+          "no agent-path K1 call held")
+    for k in kernels:
+        k["agent_launches"] = agent_launches.get(k["name"], 0)
+        if k["name"] in ag_held:
+            k["agent"] = ag_held[k["name"]]
+    kernels[names.index("scatter_rows")]["agent_launches_copy"] = \
+        agent_launches["scatter_rows_copy"]
+    del arec
     phase("replay", t0)
 
-    # 13. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    # 14. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
     #    bench.py's preempt config and its drain config, its pipeline
     #    config through the batch worker driven by hand, the lifecycle's
     #    five steps and the tenancy steps at 200 nodes driven by hand,
-    #    and the three-server cluster one eval at a time through a kill
-    #    and a restart: card == CPU twins
+    #    the three-server cluster one eval at a time through a kill
+    #    and a restart, and the server agent one HCL job at a time
+    #    through the CLI with its HTTP reads: card == CPU twins
     t0 = time.perf_counter()
     small_gpu = three_waves("cuda", 200, 8, 200, 2)
     small_cpu = three_waves("cpu", 200, 8, 200, 2)
@@ -5639,6 +6315,13 @@ def main() -> int:
     for key in cl_gpu:
         check(cl_gpu[key] == cl_cpu[key],
               f"cluster: card and CPU twins differ in {key}")
+    # the server agent at AGENT_SMALL: 200 nodes, HCL jobs of 50
+    ag_nodes = c2m_nodes(AGENT_SMALL["nodes"])
+    ag_gpu = agent_small("cuda", ag_nodes)
+    ag_cpu = agent_small("cpu", ag_nodes)
+    for key in ag_gpu:
+        check(ag_gpu[key] == ag_cpu[key],
+              f"agent: card and CPU twins differ in {key}")
     phase("small", t0, allocs_compared=len(small_gpu["placed"]),
           mesh_allocs_compared=len(mesh_gpu["placed"]),
           preempt_placed=len(pre_gpu["placed"]),
@@ -5660,7 +6343,9 @@ def main() -> int:
           tenancy_batches=len(ten_gpu["verdicts"]),
           cluster_allocs_compared=cl_gpu["allocs_compared"],
           cluster_placements=sum(n for _, n in cl_gpu["placed"]),
-          cluster_evals=len(cl_gpu["evals"]))
+          cluster_evals=len(cl_gpu["evals"]),
+          agent_allocs_compared=len(ag_gpu["allocs"]),
+          agent_reads_compared=len(ag_gpu["reads"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

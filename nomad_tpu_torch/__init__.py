@@ -14,9 +14,12 @@ counterpart is found at the same path:
                   and the volume watcher, services, secrets and task
                   tokens, search, the alloc watch hub), gossip
                   membership, the solver pool
-  acl/            ACL policies and tokens, the policy DSL, the compiled ACL
+  acl/            ACL policies and tokens, the policy DSL, the compiled ACL,
+                  the HTTP route table
   stream/         the event broker
-  jobspec/        the HCL2-subset parser (the policy DSL parses with it)
+  jobspec/        the HCL2-subset parser and the jobspec -> Job mapping
+  agent/ api/     a server agent with its HTTP API, the Python SDK
+  cli/            the command line (`python -m nomad_tpu_torch.cli`)
   connect/        the Connect admission hook and its sidecar relay
   rpc/            the TCP fabric the pool and membership speak over
   mock/ testing/  factories and the in-memory scheduling harness

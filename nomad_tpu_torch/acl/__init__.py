@@ -1,7 +1,6 @@
 """ACL system (reference: acl/ + nomad/acl.go; port of
 ``nomad_tpu/acl``): the policy and token records, the policy DSL and the
-compiled ACL. The HTTP route table (``nomad_tpu/acl/enforce.py``) comes
-with the agent."""
+compiled ACL, and the HTTP route table (``enforce.py``)."""
 
 from .acl import ACL, ACLError, compile_policies
 from .policy import (

@@ -1,34 +1,68 @@
 """Cluster-scope cost attribution: who is this server spending its
+
+Port of ``nomad_tpu/clusterobs.py``.
 time on?
 
-Port of ``nomad_tpu/clusterobs.py``, cut to what the RPC fabric writes:
+Every observability layer before this one (traces, histograms,
+solverobs, hostobs) answers "where does the second go" for ONE agent;
+nothing attributed server-side cost to the client node, peer server, or
+tenant namespace that CAUSED it — the capability ROADMAP item 4's
+"bounded server-CPU-per-node" gate needs. This module is that layer:
 
-  * :func:`source_of` derives the source one inbound request is
-    attributed to: the node identity in the args when the request is
-    about a node (``node:<id>``), else the dialing peer's label from the
-    RPC envelope (``srv:<id>``, rpc/wire.py ``SRC_KEY``), else the
-    object namespace (``ns:<name>``), else ``(unknown)``;
-  * :class:`SourceLedger` is a bounded top-K ledger of per-(source,
+  * :class:`SourceLedger` — a bounded top-K ledger of per-(source,
     method) call counts and handler seconds, LRU-evicting cold sources
-    into an explicit ``(other)`` bucket (coverage loss is counted, never
-    silent). A process-global default (:func:`ledger`) serves every
-    ``RPCServer`` that is not given its own;
-  * the thread -> source registry (:func:`set_thread_source`) says which
-    source each RPC handler thread is serving.
+    into an explicit ``(other)`` bucket (the hostobs pattern: coverage
+    loss is COUNTED, never silent). One instance per server
+    (``ClusterServer`` owns its own, so an in-process test cluster
+    attributes per member); a process-global default serves bare
+    ``RPCServer``\\ s.
+  * source identity — :func:`source_of` derives the source for one
+    inbound request: the node identity in the args when the request IS
+    about a node (heartbeats, alloc updates — ``node:<id>``), else the
+    dialing peer's label from the RPC envelope (server-to-server
+    forwards and raft — ``srv:<id>``), else the object namespace
+    (tenant-attributable writes — ``ns:<name>``), else ``(unknown)``.
+    The dialer tags its envelope via :data:`~nomad_tpu_torch.rpc.wire.SRC_KEY`.
+  * thread→source registry — the RPC dispatch path publishes "this
+    thread is currently serving <source>" (GIL-atomic dict stores, the
+    trace.thread_spans shape) so the hostobs sampling profiler can add
+    a SOURCE dimension to its CPU attribution: ``handler CPU x source
+    node`` becomes answerable from ``/v1/profile/status``.
 
-The reference's fleet-wide merge and host summary stay with its cluster
-health endpoint. A stdlib-only leaf: it imports neither metrics nor
-trace.
+Surfaced through ``Status.peer_telemetry`` / ``GET
+/v1/operator/cluster/health`` (server/cluster.py), the
+``nomad.rpc.source.*`` provider gauges (docs/metrics.md), and
+``operator cluster health`` / ``operator top -cluster``.
+
+Deliberately a stdlib-only leaf (registered in analysis/rules.py
+LEAF_MODULES): metrics/trace are never imported here at all — the
+ledger is pull-read by providers and the health RPC.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
+from typing import Optional
 
 DEFAULT_TOP_K = 128
 OTHER_SOURCE = "(other)"
 UNKNOWN_SOURCE = "(unknown)"
+
+_enabled = True
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(on: bool) -> None:
+    """Recording gate (GIL-atomic flag): the uninstrumented side of the
+    throughput comparison gate; production leaves it on."""
+    global _enabled
+    _enabled = bool(on)
+
 
 # -- source identity ------------------------------------------------------
 
@@ -87,6 +121,8 @@ class SourceLedger:
         self.unattributed_seconds = 0.0
 
     def record(self, source: str, method: str, seconds: float) -> None:
+        if not _enabled:
+            return
         with self._lock:
             self.total_calls += 1
             self.total_seconds += seconds
@@ -206,11 +242,30 @@ class SourceLedger:
             self.unattributed_seconds = 0.0
 
 
-# -- thread -> active-source registry ------------------------------------
+def merge_top_sources(rows, top: int = 5) -> list[dict]:
+    """Merge per-member ``snapshot()["top"]`` rows into one fleet-wide
+    top-K: calls/seconds summed per source, heaviest seconds first.
+    Shared by the cluster_health fleet block and run_soak's report so
+    the two surfaces can never drift."""
+    merged: dict[str, list] = {}
+    for row in rows:
+        agg = merged.setdefault(row["source"], [0, 0.0])
+        agg[0] += row["calls"]
+        agg[1] += row["seconds"]
+    return [
+        {"source": src, "calls": calls, "seconds": round(secs, 6)}
+        for src, (calls, secs) in sorted(
+            merged.items(), key=lambda kv: -kv[1][1]
+        )[: max(1, int(top))]
+    ]
 
-# tid -> source, maintained by the RPC dispatch path around handler
-# execution. GIL-atomic dict stores/deletes: a reader on another thread
-# needs no lock.
+
+# -- thread -> active-source registry (the hostobs source dimension) ------
+
+# tid -> source, maintained by the RPC dispatch paths around handler
+# execution. GIL-atomic dict stores/deletes, same discipline as
+# trace.py's thread->span registry: the sampling profiler reads it
+# from its own thread without locks.
 _thread_sources: dict[int, str] = {}
 
 
@@ -223,8 +278,40 @@ def clear_thread_source() -> None:
 
 
 def thread_sources() -> dict[int, str]:
-    """Live view (reads are GIL-atomic)."""
+    """Live view for the sampler (reads are GIL-atomic; the sampler
+    copies nothing on the fast path)."""
     return _thread_sources
+
+
+def prune_thread_sources(live_tids) -> None:
+    """Drop dead threads' entries (hostobs flush calls this alongside
+    trace.prune_thread_spans)."""
+    for tid in [t for t in _thread_sources if t not in live_tids]:
+        _thread_sources.pop(tid, None)
+
+
+# -- lightweight host summary (peer_telemetry's CPU/RSS block) ------------
+
+
+def host_summary() -> dict:
+    """Process-level host cost: CPU seconds (all threads, monotonic),
+    RSS, thread count. In production one agent is one process so these
+    ARE the server's numbers; in-process test clusters share a process
+    and the docs say so (docs/operations.md)."""
+    rss = 0
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    rss = int(line.split()[1]) * 1024
+                    break
+    except (OSError, ValueError, IndexError):
+        pass
+    return {
+        "cpu_seconds": round(time.process_time(), 3),
+        "rss_bytes": rss,
+        "threads": threading.active_count(),
+    }
 
 
 # -- process-global default ledger ---------------------------------------
@@ -234,3 +321,13 @@ _global = SourceLedger()
 
 def ledger() -> SourceLedger:
     return _global
+
+
+def _install(lg: SourceLedger) -> SourceLedger:
+    """Swap the process-global default ledger (test isolation hook,
+    mirroring hostobs._install). Servers that own their ledger are
+    unaffected."""
+    global _global
+    old = _global
+    _global = lg
+    return old

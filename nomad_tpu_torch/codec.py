@@ -281,11 +281,20 @@ def to_wire(obj: Any, _elide: bool = False) -> Any:
     raise TypeError(f"cannot encode {cls.__name__!r} for the wire")
 
 
-def _json_default(o):
+def json_default(o):
+    """json.dumps default for wire payloads: bytes ride base64-tagged and
+    registered structs lower through to_wire — HTTP handlers may return
+    structs nested anywhere in a plain dict (e.g. Job.Plan's
+    FailedTGAllocs)."""
     if isinstance(o, bytes):
         import base64
 
         return {_BYTES_KEY: base64.b64encode(o).decode()}
+    if dataclasses.is_dataclass(o) and not isinstance(o, type):
+        return to_wire(o)
+    if type(o).__name__ == "AllocRow":
+        # a lazy alloc handle at the HTTP/event boundary: materialize
+        return to_wire(o.get())
     raise TypeError(f"not JSON serializable: {type(o).__name__}")
 
 
@@ -294,7 +303,7 @@ def pack(obj: Any) -> bytes:
 
     return json.dumps(
         to_wire(obj, _elide=True), separators=(",", ":"),
-        ensure_ascii=False, default=_json_default,
+        ensure_ascii=False, default=json_default,
     ).encode()
 
 

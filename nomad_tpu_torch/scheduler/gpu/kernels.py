@@ -353,6 +353,17 @@ def _count(fn, n: int = 1, attr: str = "launches") -> None:
         setattr(fn, attr, getattr(fn, attr) + n)
 
 
+def _note_launch(fn, info) -> None:
+    """Keep the cluster size, slice placement, slice width and dynamic
+    shared-memory bytes a cluster kernel's launch chose (`info`, four
+    ints the C entry point fills)."""
+    fn.last_launch = {
+        "cluster": info[0], "smem_slices": bool(info[1]),
+        "slice": info[2], "smem_bytes": info[3],
+    }
+    fn.launch_shapes.add((info[0], info[1], info[2], info[3]))
+
+
 def solve_placement_compact(
     cap, used, asks, counts, feas_packed, feas_idx, bias_rows, bias_idx,
     ucap_rows, ucap_idx, *, max_count: int,
@@ -418,16 +429,15 @@ def solve_placement_compact(
     )
     libkernels.check(code, "solve_placement_compact")
     _count(solve_placement_compact)
-    solve_placement_compact.last_launch = {
-        "cluster": info[0], "smem_slices": bool(info[1]),
-        "slice": info[2], "smem_bytes": info[3],
-    }
+    _note_launch(solve_placement_compact, info)
     return inst, over, used_out
 
 
 solve_placement_compact.launches = 0
-# the cluster size and slice placement the last launch chose
+# the cluster size and slice placement the last launch chose, and every
+# distinct one chosen so far
 solve_placement_compact.last_launch = None
+solve_placement_compact.launch_shapes = set()
 
 
 # ---------------------------------------------------------------------------
@@ -555,16 +565,15 @@ def solve_placement(cap, used, asks, counts, feas, bias, units_cap):
     )
     libkernels.check(code, "solve_placement")
     _count(solve_placement)
-    solve_placement.last_launch = {
-        "cluster": info[0], "smem_slices": bool(info[1]),
-        "slice": info[2], "smem_bytes": info[3],
-    }
+    _note_launch(solve_placement, info)
     return assign, used_out
 
 
 solve_placement.launches = 0
-# the cluster size and slice placement the last launch chose
+# the cluster size and slice placement the last launch chose, and every
+# distinct one chosen so far
 solve_placement.last_launch = None
+solve_placement.launch_shapes = set()
 
 
 def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,
@@ -608,16 +617,15 @@ def solve_placement_preempt(cap, used_exist, prefix_used, asks, counts, feas,
     )
     libkernels.check(code, "solve_placement_preempt")
     _count(solve_placement_preempt)
-    solve_placement_preempt.last_launch = {
-        "cluster": info[0], "smem_slices": bool(info[1]),
-        "slice": info[2], "smem_bytes": info[3],
-    }
+    _note_launch(solve_placement_preempt, info)
     return assign, evict, used_out
 
 
 solve_placement_preempt.launches = 0
-# the cluster size and slice placement the last launch chose
+# the cluster size and slice placement the last launch chose, and every
+# distinct one chosen so far
 solve_placement_preempt.last_launch = None
+solve_placement_preempt.launch_shapes = set()
 
 
 # ---------------------------------------------------------------------------
@@ -1252,3 +1260,17 @@ def reset_launch_counts() -> None:
             fn.launches = 0
         scatter_rows.launches_copy = 0
         sharded_solver_preempt.graph_replays = 0
+
+
+def built_variants() -> dict[str, int]:
+    """What the kernels hold built, by kind: the kernel library (1 once
+    it is loaded), each cluster kernel's distinct launch shapes, and K7's
+    captured CUDA graphs (at most MAX_PREEMPT_GRAPHS). The port's
+    counterpart of nomad_tpu's ``jit_cache_sizes`` (jax's jit-cache
+    entries per kernel), served under that key at /v1/solver/status."""
+    out = {"library": int(libkernels.loaded())}
+    for fn in (solve_placement_compact, solve_placement,
+               solve_placement_preempt):
+        out[fn.__name__] = len(fn.launch_shapes)
+    out["sharded_solver_preempt_graphs"] = len(sharded_solver_preempt.graphs)
+    return out

@@ -213,6 +213,11 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def loaded() -> bool:
+    """Whether the kernel library is built and loaded in this process."""
+    return _lib is not None
+
+
 def check(code: int, kernel: str) -> None:
     """Raise on a nonzero cudaError_t from a launch."""
     if code != 0:

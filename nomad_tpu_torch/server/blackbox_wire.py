@@ -15,12 +15,9 @@ ClusterServer:
     indices, broker depths, plan-queue depth) and evaluates the trigger
     engine over journal-kind counts + registry counters + last-window
     histogram p99s;
-  * incident capture — a firing writes a bundle (journal, metrics,
-    solver status) under ``incident_dir/<ts>-<rule>/``. The reference's
-    bundle also holds the trace ring, the host profiler's summary and
-    stacks, and the cluster health federation; those sources
-    (trace.TraceRecorder, hostobs.HostProfiler,
-    ClusterServer.cluster_health) come to the port with the agent.
+  * incident capture — a firing writes a full debug-bundle-equivalent
+    (journal, metrics, traces, profile summary + collapsed stacks,
+    solver status, cluster health) under ``incident_dir/<ts>-<rule>/``.
     Capture is single-flight behind a non-blocking lock + busy-until
     deadline: a flapping trigger suppresses concurrent writes instead
     of stacking them.
@@ -296,7 +293,7 @@ class BlackboxWiring:
         return max(0.1, self._busy_until - time.monotonic())
 
     def _write_bundle(self, path: str, rule: str, detail: dict) -> None:
-        from .. import solverobs
+        from .. import hostobs, solverobs, trace
 
         os.makedirs(path, exist_ok=True)
 
@@ -319,4 +316,10 @@ class BlackboxWiring:
         })
         dump("journal.json", lambda: blackbox.recorder().snapshot())
         dump("metrics.json", metrics.snapshot)
+        dump("traces.json", lambda: trace.recorder().list(limit=200))
+        dump("profile_status.json", lambda: hostobs.snapshot(top=50))
+        dump("profile_stacks.txt", hostobs.collapsed)
         dump("solver_status.json", solverobs.snapshot)
+        dump("cluster_health.json", lambda: self.cluster.cluster_health(
+            per_peer_timeout_s=0.5, top=5
+        ))

@@ -31,8 +31,9 @@ The reference's `Server` takes the same argument; its ClusterServer does
 not pass one.
 
 The per-member telemetry federation (``peer_telemetry``,
-``cluster_health`` and ``Status.peer_telemetry``) reads the reference's
-host profiler and comes to the port with the agent. The reverse-dial
+``cluster_health`` and ``Status.peer_telemetry``) reads the host
+profiler (hostobs.py) and feeds the agent's
+``/v1/operator/cluster/health``. The reverse-dial
 sessions, the exec-stream splice and ``csi_controller_roundtrip`` are
 reached only by a client agent.
 """
@@ -1121,6 +1122,15 @@ class StatusEndpoint(_Forwarder):
     def members(self, args):
         return [m.to_wire() for m in self.cs.serf.members()]
 
+    def peer_telemetry(self, args):
+        """One member's health/telemetry summary, answered LOCALLY
+        (never forwarded — the caller is federating, and a forward
+        would report the leader's numbers as ours). The leader-side
+        aggregation in ClusterServer.cluster_health pulls this from
+        every member with a bounded per-peer deadline."""
+        top = int((args or {}).get("top", 5))
+        return self.cs.peer_telemetry(top=top)
+
 
 class ClusterServer:
     def __init__(
@@ -1352,6 +1362,183 @@ class ClusterServer:
             daemon=True,
         )
         self._reconciler.start()
+
+    # -- cluster-scope observability (clusterobs.py) -------------------
+
+    def peer_telemetry(self, top: int = 5) -> dict:
+        """THIS member's health/telemetry summary — the per-server row
+        of ``/v1/operator/cluster/health`` (autopilot-health-shaped:
+        raft indices, broker/plan-queue depths, host CPU/RSS, and the
+        per-source cost top-K). Reads live structures only; cheap
+        enough for a poll loop."""
+        raft = self.raft
+        srv = self.server
+        from .. import hostobs
+
+        host = clusterobs.host_summary()
+        prof = hostobs.profiler()
+        host["profiler_running"] = prof.running()
+        host["busy_seconds"] = round(prof.busy_ns / 1e9, 3)
+        return {
+            "id": self.node_id,
+            "region": self.region,
+            "addr": list(self.rpc.addr),
+            "leader": self.is_leader(),
+            "leader_id": raft.leader_id,
+            "uptime_s": round(
+                time.monotonic() - self._started_monotonic, 1
+            ),
+            "raft": {
+                "state": raft.state,
+                "term": raft.current_term,
+                "commit_index": raft.commit_index,
+                "applied_index": raft.last_applied,
+                "last_index": raft.last_index,
+            },
+            "broker": srv.eval_broker.stats_snapshot(),
+            "plan_queue_depth": srv.plan_queue.depth(),
+            "host": host,
+            "sources": self.source_ledger.snapshot(top=top),
+        }
+
+    def cluster_health(
+        self, per_peer_timeout_s: float = 2.0, top: int = 5
+    ) -> dict:
+        """Leader-side telemetry federation: pull every known member's
+        ``Status.peer_telemetry`` over the existing fabric, each under
+        a bounded per-peer deadline, in parallel. A member that cannot
+        answer in time is reported ``degraded`` with the error — the
+        response NEVER hangs on a partitioned or dead peer, and healthy
+        members are still aggregated (the autopilot-health shape). Any
+        server may serve this; it needs no leadership."""
+        t0 = time.perf_counter()
+        per_peer_timeout_s = max(0.1, min(float(per_peer_timeout_s), 30.0))
+        top = max(1, min(int(top), 50))
+        with self.raft._lock:  # applies mutate the dict in place
+            peers = {
+                pid: tuple(a) for pid, a in self.raft.peers.items()
+            }
+        for m in self.serf.members():
+            if m.id != self.node_id and (m.tags or {}).get(
+                "role"
+            ) == "server":
+                peers.setdefault(m.id, tuple(m.addr))
+        peers.pop(self.node_id, None)
+        results: dict[str, dict] = {}
+        local = self.peer_telemetry(top=top)
+        local["status"] = "ok"
+        results[self.node_id] = local
+
+        def query(pid: str, addr: tuple) -> None:
+            try:
+                out = self.pool.call(
+                    addr,
+                    "Status.peer_telemetry",
+                    {"top": top},
+                    timeout_s=per_peer_timeout_s,
+                    retries=0,
+                )
+                out["status"] = "ok"
+                results[pid] = out  # GIL-atomic store
+            except Exception as e:
+                # never overwrite a success a racing attempt landed
+                results.setdefault(
+                    pid,
+                    {
+                        "id": pid,
+                        "addr": list(addr),
+                        "status": "degraded",
+                        "error": f"{type(e).__name__}: {e}",
+                    },
+                )
+
+        threads = []
+        for pid, addr in peers.items():
+            t = threading.Thread(
+                target=query,
+                args=(pid, addr),
+                name=f"cluster-health-{pid}",
+                daemon=True,
+            )
+            t.start()
+            threads.append(t)
+        # one shared deadline: peers are queried in PARALLEL, so the
+        # whole federation costs one per-peer budget (+ slack), not N.
+        # Stragglers are left to their daemon threads and reported
+        # degraded — a hung peer must never hang the response.
+        deadline = time.monotonic() + per_peer_timeout_s + 0.25
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        servers = []
+        degraded = []
+        fleet = {
+            "broker_ready": 0,
+            "broker_unacked": 0,
+            "plan_queue_depth": 0,
+            "cpu_seconds": 0.0,
+            "rss_bytes": 0,
+        }
+        source_rows: list[dict] = []
+        for pid in sorted(set(peers) | {self.node_id}):
+            ent = results.get(pid)
+            if ent is None:
+                ent = {
+                    "id": pid,
+                    "addr": list(peers.get(pid, ())),
+                    "status": "degraded",
+                    "error": "peer deadline exceeded",
+                }
+            if ent.get("status") == "ok":
+                broker = ent.get("broker") or {}
+                fleet["broker_ready"] += int(
+                    broker.get("total_ready", 0)
+                )
+                fleet["broker_unacked"] += int(
+                    broker.get("total_unacked", 0)
+                )
+                fleet["plan_queue_depth"] += int(
+                    ent.get("plan_queue_depth", 0)
+                )
+                host = ent.get("host") or {}
+                fleet["cpu_seconds"] = round(
+                    fleet["cpu_seconds"]
+                    + float(host.get("cpu_seconds", 0.0)),
+                    3,
+                )
+                fleet["rss_bytes"] += int(host.get("rss_bytes", 0))
+                source_rows.extend(
+                    (ent.get("sources") or {}).get("top", [])
+                )
+            else:
+                degraded.append(pid)
+            servers.append(ent)
+        fleet["sources_top"] = clusterobs.merge_top_sources(
+            source_rows, top=top
+        )
+        leader_id = next(
+            (s["id"] for s in servers if s.get("leader")), None
+        )
+        out = {
+            "region": self.region,
+            "queried_by": self.node_id,
+            "leader": leader_id,
+            "per_peer_timeout_s": per_peer_timeout_s,
+            "elapsed_s": round(time.perf_counter() - t0, 4),
+            "healthy": len(servers) - len(degraded),
+            "degraded": degraded,
+            "servers": servers,
+            "fleet": fleet,
+        }
+        metrics.observe(
+            "nomad.cluster.health_seconds", time.perf_counter() - t0
+        )
+        metrics.set_gauge("nomad.cluster.members", float(len(servers)))
+        metrics.set_gauge(
+            "nomad.cluster.degraded", float(len(degraded))
+        )
+        if degraded:
+            metrics.incr("nomad.cluster.peer_degraded", len(degraded))
+        return out
 
     # -- wiring --------------------------------------------------------
 

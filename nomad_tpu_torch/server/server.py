@@ -24,8 +24,9 @@ watch hub behind ``get_client_allocs`` and the node-register batcher.
 Replication plugs in through ``set_raft_applier`` (the cluster layer
 routes every ``raft_apply`` through its RaftNode) and ``replay_barrier``
 (``establish_leadership`` waits until the local store has applied the
-new leader's barrier entry). The metrics providers (they feed the
-agent's ``/v1/metrics``) stay with the reference.
+new leader's barrier entry). The ``nomad.*`` metrics providers
+(broker, plan queue, workers, blocked evals, heartbeat, fleet, stream)
+feed the agent's ``/v1/metrics`` and are released at shutdown.
 
 Every mutation flows through raft_apply. The endpoint methods here are
 what an RPC layer would call.
@@ -230,6 +231,41 @@ class Server:
 
         self.eval_broker = EvalBroker()
         self.plan_queue = PlanQueue()
+        # Telemetry providers: live subsystem stats sampled at /v1/metrics
+        # snapshot time (reference nomad/server.go:444-450 publishes the
+        # same broker/plan-queue gauges on a timer).
+        self._metric_handles = [
+            # live depths + shed counters computed under the broker lock
+            # (the legacy stats dict only ever tracked dead-letters)
+            ("nomad.broker", metrics.register_provider(
+                "nomad.broker", lambda: self.eval_broker.stats_snapshot()
+            )),
+            ("nomad.plan_queue", metrics.register_provider(
+                "nomad.plan_queue", lambda: {"depth": self.plan_queue.depth()}
+            )),
+            # worker-pool utilization for `operator top`: pool size and
+            # total evals processed (throughput = its rate)
+            ("nomad.workers", metrics.register_provider(
+                "nomad.workers", self._worker_stats
+            )),
+            # blocked-evals storm containment gauges (dedup + cap)
+            ("nomad.blocked_evals", metrics.register_provider(
+                "nomad.blocked_evals",
+                lambda: dict(self.blocked_evals.stats),
+            )),
+            # heartbeat wheel depth (armed TTLs + live buckets)
+            ("nomad.heartbeat", metrics.register_provider(
+                "nomad.heartbeat", lambda: self.heartbeaters.stats()
+            )),
+            # fleet panel: watch fan-out + node liveness census
+            ("nomad.fleet", metrics.register_provider(
+                "nomad.fleet", self._fleet_stats
+            )),
+            # event-stream subscriber census (bounded-queue discipline)
+            ("nomad.stream", metrics.register_provider(
+                "nomad.stream", lambda: self.event_broker.stats()
+            )),
+        ]
         self.plan_applier = PlanApplier(
             self.plan_queue, self.state, self.raft_apply, self.raft_apply_async
         )
@@ -429,9 +465,34 @@ class Server:
         self.heartbeaters.set_enabled(False)
 
     def shutdown(self) -> None:
+        for name, handle in self._metric_handles:
+            metrics.unregister_provider(name, handle)
         self.revoke_leadership()
         self.watch_hub.stop()
         self._unblock_q.put(None)
+
+    def _fleet_stats(self) -> dict[str, float]:
+        """`nomad.fleet.*` provider gauges: watch fan-out census plus a
+        node-liveness breakdown (the `operator top` Fleet row)."""
+        stats = self.watch_hub.stats()
+        ready = down = 0
+        for node in self.state.nodes():
+            if node.status == NODE_STATUS_READY:
+                ready += 1
+            elif node.status == NODE_STATUS_DOWN:
+                down += 1
+        stats["nodes_ready"] = ready
+        stats["nodes_down"] = down
+        return stats
+
+    def _worker_stats(self) -> dict[str, float]:
+        workers = list(self.workers)
+        processed = sum(w.processed for w in workers)
+        count = len(workers)
+        if self.tpu_worker is not None:
+            processed += self.tpu_worker.processed
+            count += 1
+        return {"count": float(count), "processed": float(processed)}
 
     def _restore_evals(self) -> None:
         """Broker state is not persisted; rebuild from the state store

@@ -12,7 +12,13 @@ that separates them:
     a signature not seen before is a new shape (the kernels are built
     once, so a new shape costs no compile: the ledger shows how many
     buckets the traffic spreads over). The ledger is bounded
-    (per-kernel signature FIFO).
+    (per-kernel signature FIFO). It keeps the reference's compile-ledger
+    wire keys: a new shape counts as a "compile" (the reference's jit
+    traces and compiles there; the port launches a built kernel at a new
+    launch shape), a repeat as a "cache hit", and a new shape after the
+    kernel had served repeats as a "steady recompile" — a climbing count
+    is traffic spreading over more buckets. ``record_call`` is the
+    reference's entry point onto the same ledger.
   * batch occupancy — real rows/cols vs the padded bucket shapes:
     occupancy fraction, padding-waste fraction, and asks-per-batch.
   * transfer accounting — host->device bytes from the numpy arrays
@@ -62,7 +68,8 @@ def set_enabled(on: bool) -> None:
 class _Kernel:
     __slots__ = (
         "sigs", "launches", "new_shapes", "enqueue_ns", "last_sig",
-        "evicted", "routes",
+        "evicted", "routes", "cache_hits", "steady_recompiles",
+        "first_compile_ns", "steady_compile_ns",
     )
 
     def __init__(self) -> None:
@@ -76,9 +83,21 @@ class _Kernel:
         # route -> calls, for entry points that report one (a CUDA graph's
         # capture or replay, or step-by-step launches)
         self.routes: dict = {}
+        # the reference's compile-ledger counters (new_shapes is its
+        # "compiles"); the *_compile_ns sums are the host time of the
+        # calls that met a new shape
+        self.cache_hits = 0
+        self.steady_recompiles = 0
+        self.first_compile_ns = 0
+        self.steady_compile_ns = 0
 
     def to_wire(self) -> dict:
         return {
+            "compiles": self.new_shapes,
+            "cache_hits": self.cache_hits,
+            "steady_recompiles": self.steady_recompiles,
+            "first_compile_ms": round(self.first_compile_ns / 1e6, 3),
+            "steady_compile_ms": round(self.steady_compile_ns / 1e6, 3),
             "launches": self.launches,
             "new_shapes": self.new_shapes,
             "enqueue_ms": round(self.enqueue_ns / 1e6, 3),
@@ -148,21 +167,54 @@ class SolverObservatory:
                     k.evicted += 1
                 k.sigs[signature] = 0
                 k.new_shapes += 1
+                # a new shape once the kernel served repeats is a steady
+                # recompile; the warm-up shapes before any repeat are not
+                if k.cache_hits > 0:
+                    k.steady_recompiles += 1
+                    k.steady_compile_ns += wall_ns
+                else:
+                    k.first_compile_ns += wall_ns
             else:
                 k.sigs[signature] += 1
+                k.cache_hits += 1
         metrics.incr("nomad.solver.launches")
         metrics.observe("nomad.solver.enqueue_seconds", wall_ns / 1e9)
-        if new:
-            metrics.incr("nomad.solver.new_shapes")
-        return new
+        if not new:
+            metrics.incr("nomad.solver.cache_hits")
+            return False
+        metrics.incr("nomad.solver.new_shapes")
+        metrics.incr("nomad.solver.compiles")
+        metrics.observe("nomad.solver.compile_seconds", wall_ns / 1e9)
+        trace.stage_attrs(
+            "solver.compile", wall_ns, kernel=kernel,
+            signature=str(signature),
+        )
+        return True
 
-    def new_shapes(self, prefix: str = "") -> int:
+    def record_call(self, kernel: str, signature: tuple,
+                    wall_ns: int) -> bool:
+        """The reference's compile-ledger entry point: one kernel call,
+        True when its padded-shape signature is new (a "compile"),
+        False on a repeat (a "cache hit")."""
+        return self.record_launch(kernel, signature, wall_ns)
+
+    def _sum(self, field: str, prefix: str) -> int:
         with self._lock:
             return sum(
-                k.new_shapes
+                getattr(k, field)
                 for name, k in self._kernels.items()
                 if name.startswith(prefix)
             )
+
+    def new_shapes(self, prefix: str = "") -> int:
+        return self._sum("new_shapes", prefix)
+
+    def compiles(self, prefix: str = "") -> int:
+        """New launch shapes (the reference's compile events)."""
+        return self._sum("new_shapes", prefix)
+
+    def steady_recompiles(self, prefix: str = "") -> int:
+        return self._sum("steady_recompiles", prefix)
 
     # -- batch occupancy ------------------------------------------------
 
@@ -296,6 +348,15 @@ class SolverObservatory:
                 "enabled": _enabled,
                 "ledger": {
                     "kernels": kernels,
+                    "compiles": sum(
+                        k.new_shapes for k in self._kernels.values()
+                    ),
+                    "cache_hits": sum(
+                        k.cache_hits for k in self._kernels.values()
+                    ),
+                    "steady_recompiles": sum(
+                        k.steady_recompiles for k in self._kernels.values()
+                    ),
                     "launches": sum(
                         k.launches for k in self._kernels.values()
                     ),
@@ -343,7 +404,7 @@ def _install(obs: SolverObservatory) -> SolverObservatory:
     the test isolation hook, mirroring metrics._install_registry."""
     global _global, record_launch, record_batch, note_asks, note_table
     global record_transfer, record_shards, sample_device_memory, snapshot
-    global new_shapes
+    global new_shapes, record_call, compiles, steady_recompiles
     old = _global
     _global = obs
     record_launch = obs.record_launch
@@ -355,6 +416,9 @@ def _install(obs: SolverObservatory) -> SolverObservatory:
     sample_device_memory = obs.sample_device_memory
     snapshot = obs.snapshot
     new_shapes = obs.new_shapes
+    record_call = obs.record_call
+    compiles = obs.compiles
+    steady_recompiles = obs.steady_recompiles
     return old
 
 
@@ -369,6 +433,9 @@ record_shards = _global.record_shards
 sample_device_memory = _global.sample_device_memory
 snapshot = _global.snapshot
 new_shapes = _global.new_shapes
+record_call = _global.record_call
+compiles = _global.compiles
+steady_recompiles = _global.steady_recompiles
 
 
 def timed_call(kernel: str, signature: tuple, fn, *args, **kwargs):

@@ -1,9 +1,10 @@
 """ACL against the port: the policy DSL, the compiled ACL and the
 Server's ACL endpoints.
 
-The ``parse_policy`` / ``compile_policies`` cases of ``tests/test_acl.py``
-with their imports pointed at ``nomad_tpu_torch`` (its HTTP enforcement
-cases wait for the agent and the API); the assertions are the
+The cases of ``tests/test_acl.py`` with their imports pointed at
+``nomad_tpu_torch``: the policy DSL, the compiled ACL, and the HTTP
+enforcement through the port's server agent (``device="cpu"``; the
+reference's is a dev agent) and its SDK; the assertions are the
 reference's. The Server cases at the end hold the port's
 ``acl_bootstrap``, policy and token endpoints and ``resolve_token`` to
 nomad_tpu's on the same inputs.
@@ -15,6 +16,9 @@ import pytest
 
 from nomad_tpu_torch.acl import compile_policies, parse_policy
 from nomad_tpu_torch.acl.policy import PolicyError
+from nomad_tpu_torch.api import APIError, NomadClient
+
+from torch_agent_kit import server_config, start_server_agent
 
 
 class TestPolicyParsing:
@@ -99,6 +103,125 @@ class TestCompiledACL:
 
         assert MANAGEMENT_ACL.allow_namespace_op("any", "submit-job")
         assert MANAGEMENT_ACL.allow_node_write()
+
+
+@pytest.fixture(scope="module")
+def acl_agent(tmp_path_factory):
+    # the reference's dev agent, without its client (ROADMAP A12 part
+    # 8): a server agent on the CPU
+    a = start_server_agent(server_config(
+        str(tmp_path_factory.mktemp("acl-agent")), acl_enabled=True),
+        nodes=0)
+    yield a
+    a.shutdown()
+
+
+@pytest.fixture(scope="module")
+def root(acl_agent):
+    host, port = acl_agent.http_addr
+    api = NomadClient(f"http://{host}:{port}")
+    token = api.acl.bootstrap()
+    return NomadClient(f"http://{host}:{port}", token=token.secret_id)
+
+
+class TestHTTPEnforcement:
+    def test_anonymous_denied(self, acl_agent, root):
+        host, port = acl_agent.http_addr
+        anon = NomadClient(f"http://{host}:{port}")
+        with pytest.raises(APIError) as e:
+            anon.jobs.list()
+        assert e.value.status == 401
+        # status stays open
+        assert anon.status.leader()
+
+    def test_bootstrap_once(self, root):
+        with pytest.raises(APIError):
+            root.acl.bootstrap()
+
+    def test_management_allowed(self, root):
+        assert root.jobs.list() == []
+        assert root.nodes.list() is not None
+
+    def test_scoped_client_token(self, acl_agent, root):
+        host, port = acl_agent.http_addr
+        root.acl.policy_apply(
+            "readonly", 'namespace "default" { policy = "read" }'
+        )
+        tok = root.acl.token_create(
+            name="reader", policies=["readonly"]
+        )
+        reader = NomadClient(f"http://{host}:{port}", token=tok.secret_id)
+        assert reader.jobs.list() == []  # list-jobs allowed
+        from nomad_tpu_torch import mock
+
+        job = mock.job()
+        with pytest.raises(APIError) as e:
+            reader.jobs.register(job)  # submit-job denied
+        assert e.value.status == 403
+        with pytest.raises(APIError) as e:
+            reader.nodes.list()  # no node policy
+        assert e.value.status == 403
+        # token/self works for any valid token
+        me = reader.acl.token_self()
+        assert me.accessor_id == tok.accessor_id
+        # acl admin requires management
+        with pytest.raises(APIError) as e:
+            reader.acl.tokens()
+        assert e.value.status == 403
+
+    def test_bad_token_401(self, acl_agent):
+        host, port = acl_agent.http_addr
+        bad = NomadClient(f"http://{host}:{port}", token="not-a-token")
+        with pytest.raises(APIError) as e:
+            bad.jobs.list()
+        assert e.value.status == 401
+
+    def test_token_lifecycle(self, root):
+        tok = root.acl.token_create(name="temp", policies=["readonly"])
+        listed = root.acl.tokens()
+        assert any(t.accessor_id == tok.accessor_id for t in listed)
+        # secrets never listed
+        assert all(t.secret_id == "" for t in listed)
+        root.acl.token_delete(tok.accessor_id)
+        with pytest.raises(APIError):
+            root.acl.token(tok.accessor_id)
+
+    def test_body_namespace_escalation_blocked(self, acl_agent, root):
+        """submit-job on 'default' must not allow registering into
+        another namespace via the job body (review finding)."""
+        host, port = acl_agent.http_addr
+        root.acl.policy_apply(
+            "submit-default", 'namespace "default" { policy = "write" }'
+        )
+        tok = root.acl.token_create(
+            name="submitter", policies=["submit-default"]
+        )
+        submitter = NomadClient(f"http://{host}:{port}", token=tok.secret_id)
+        from nomad_tpu_torch import mock
+
+        ok_job = mock.job()
+        assert submitter.jobs.register(ok_job)  # default ns: allowed
+        evil = mock.job()
+        evil.namespace = "prod"
+        with pytest.raises(APIError) as e:
+            submitter.jobs.register(evil)
+        assert e.value.status == 403
+
+    def test_second_bootstrap_is_400(self, acl_agent, root):
+        with pytest.raises(APIError) as e:
+            root.acl.bootstrap()
+        assert e.value.status == 400
+
+    def test_deployment_cross_namespace_guarded(self, acl_agent, root):
+        """A default-scoped token must not read/fail other namespaces'
+        deployments or allocs by ID (review finding)."""
+        host, port = acl_agent.http_addr
+        tok = root.acl.token_create(name="r2", policies=["readonly"])
+        reader = NomadClient(f"http://{host}:{port}", token=tok.secret_id)
+        # lists filter to readable namespaces (no error, just scoped)
+        assert isinstance(reader.allocations.list(), list)
+        assert isinstance(reader.evaluations.list(), list)
+        assert isinstance(reader.deployments.list(), list)
 
 
 class TestDenyWins:

@@ -4,10 +4,11 @@ full-cluster restart, and operator snapshot save/restore.
 The cases of ``tests/test_durability.py`` against the port, imports
 changed only and the reference's assertions unchanged; every server
 states its scheduler config (the reference's default, ``backend="host"``,
-on ``device="cpu"``). Left out: ``test_snapshot_save_restore_http``,
-which drives the agent's HTTP API; it comes with the agent (ROADMAP A12
-part 7). ``tests/test_torch_cluster.py`` holds the same save/restore
-round trip through a ClusterServer's ``Operator`` endpoints.
+on ``device="cpu"``); ``test_snapshot_save_restore_http`` drives the
+port's server agent and its HTTP API (the reference's dev agent runs a
+client too, which the case does not use). ``tests/test_torch_cluster.py``
+holds the same save/restore round trip through a ClusterServer's
+``Operator`` endpoints.
 
 Reference analogs: hashicorp/raft-boltdb semantics (§5.1 persistent
 state), nomad/fsm.go:1367 Snapshot / :1381 Restore, helper/snapshot/,
@@ -203,6 +204,51 @@ class TestClusterRestart:
         finally:
             for s in servers2.values():
                 s.shutdown()
+
+
+class TestOperatorSnapshot:
+    def test_snapshot_save_restore_http(self, tmp_path):
+        """operator snapshot save → register extra job → restore: the
+        extra job is gone, original intact."""
+        from nomad_tpu_torch.agent import Agent, AgentConfig
+        from nomad_tpu_torch.api import NomadClient
+
+        # the reference's dev agent, without its client (ROADMAP A12
+        # part 8): an in-memory server agent on the CPU
+        cfg = AgentConfig(server_enabled=True, dev_mode=True, device="cpu")
+        cfg.data_dir = str(tmp_path / "agent")
+        agent = Agent(cfg)
+        agent.start()
+        try:
+            host, port = agent.http_addr
+            api = NomadClient(f"http://{host}:{port}")
+            job1 = mock.job()
+            job1.id = "keep-me"
+            api.jobs.register(job1)
+            assert wait_until(
+                lambda: api.jobs.get("keep-me") is not None
+            )
+
+            snap = api.operator.snapshot_save()
+            assert len(snap) > 0
+
+            job2 = mock.job()
+            job2.id = "drop-me"
+            api.jobs.register(job2)
+            assert wait_until(lambda: api.jobs.get("drop-me") is not None)
+
+            api.operator.snapshot_restore(snap)
+            assert wait_until(
+                lambda: not any(
+                    j.id == "drop-me" for j in api.jobs.list()
+                )
+            ), "restored state still has the post-snapshot job"
+            assert any(j.id == "keep-me" for j in api.jobs.list())
+
+            peers = api.operator.raft_configuration()
+            assert len(peers) == 1 and peers[0]["leader"]
+        finally:
+            agent.shutdown()
 
 
 class TestStoreExclusivity:

@@ -7,8 +7,10 @@
   everywhere else it is imported inside the function that needs it, so
   the host modules load without it.
 * A fresh interpreter importing the tenancy and cluster tables' modules
-  (ACL, the event stream, the volume watcher, the watch hub, search)
-  loads neither torch nor jax nor nomad_tpu.
+  (ACL, the event stream, the volume watcher, the watch hub, search), or
+  the operator's front door (the agent, the API, the CLI, the jobspec
+  parser), or running ``python -m nomad_tpu_torch.cli version``, loads
+  neither torch nor jax nor nomad_tpu.
 """
 
 import ast
@@ -54,6 +56,10 @@ def test_every_module_is_scanned():
     assert len(MODULES) > 80
     assert PKG / "acl" / "policy.py" in MODULES
     assert PKG / "stream" / "event_broker.py" in MODULES
+    for rel in ("jobspec/parse.py", "acl/enforce.py", "api/client.py",
+                "agent/agent.py", "agent/http.py", "agent/debug.py",
+                "agent/ui.py", "cli/main.py", "cli/__main__.py"):
+        assert PKG / rel in MODULES, rel
 
 
 @pytest.mark.parametrize("path", MODULES, ids=_rel)
@@ -95,3 +101,45 @@ def test_tenancy_modules_load_no_torch_jax_or_nomad_tpu():
         check=True, timeout=120, cwd=str(PKG.parent),
     ).stdout.strip()
     assert out == "[]"
+
+
+_BAD_MODULES = (
+    "bad = sorted(m for m in sys.modules if m in ('torch', 'jax')"
+    " or m.startswith(('torch.', 'jax.', 'nomad_tpu.')) or m == "
+    "'nomad_tpu')\n"
+)
+
+
+def test_front_door_modules_load_no_torch_jax_or_nomad_tpu():
+    code = (
+        "import sys\n"
+        "import nomad_tpu_torch.agent\n"
+        "import nomad_tpu_torch.api\n"
+        "import nomad_tpu_torch.cli\n"
+        "import nomad_tpu_torch.jobspec\n"
+        "import nomad_tpu_torch.acl.enforce\n"
+        + _BAD_MODULES + "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        check=True, timeout=120, cwd=str(PKG.parent),
+    ).stdout.strip()
+    assert out == "[]"
+
+
+def test_cli_version_loads_no_torch_jax_or_nomad_tpu():
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['nomad_tpu_torch.cli', 'version']\n"
+        "try:\n"
+        "    runpy.run_module('nomad_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        + _BAD_MODULES + "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        check=True, timeout=120, cwd=str(PKG.parent),
+    ).stdout.strip().splitlines()
+    assert out[0].startswith("nomad-tpu-torch v")
+    assert out[-1] == "[]"

@@ -1,8 +1,9 @@
 """The reference's Job.Plan cases against the port, on the CPU: the 7
 cases of tests/test_job_plan.py that need no agent, with the same
 assertions, on the port's Server with its workers on the kernels' plain
-twins (``SchedulerConfig(device="cpu")``). The two cases that go through
-the HTTP agent and the SDK wait for the port's agent and api. The plan's
+twins (``SchedulerConfig(device="cpu")``), and its two cases that go
+through the HTTP agent and the SDK, on the port's server agent
+(``AgentConfig(device="cpu")``). The plan's
 equality with nomad_tpu's, annotation for annotation, is held by
 tests/test_torch_lifecycle.py's lockstep differential."""
 
@@ -133,3 +134,61 @@ def test_diff_bool_flip_renders_edited():
     assert d["Old"] == "false" and d["New"] == "true"
     d = field_diff("leader", True, False)
     assert d["Type"] == "Edited"
+
+
+def test_plan_http_and_cli_surface(tmp_path):
+    """End to end through the HTTP agent + SDK: plan then run."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        srv = agent.server.server  # ClusterServer wraps the core Server
+        for _ in range(2):
+            srv.node_register(mock.node())
+        job = mock.job()
+        job.task_groups[0].count = 2
+        resp = api.jobs.plan(job)
+        assert resp["Changes"] is True
+        tg = resp["Annotations"]["DesiredTGUpdates"][job.task_groups[0].name]
+        assert tg["place"] == 2
+        # still a dry-run through the full HTTP path
+        assert srv.state.job_by_id(job.namespace, job.id) is None
+    finally:
+        agent.shutdown()
+
+
+def test_plan_failure_serializes_over_http(tmp_path):
+    """FailedTGAllocs carries AllocMetric structs — they must survive the
+    JSON boundary (regression: HTTP 500 on the failure path)."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        agent.server.server.node_register(mock.node())
+        job = mock.job()
+        job.task_groups[0].count = 1
+        job.task_groups[0].tasks[0].resources.cpu = 10**9
+        resp = api.jobs.plan(job)
+        assert job.task_groups[0].name in resp["FailedTGAllocs"]
+    finally:
+        agent.shutdown()

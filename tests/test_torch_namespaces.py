@@ -6,10 +6,13 @@ bootstrapped at leadership (and on first use), any other namespace must
 have been registered. The port's register once stored a job in a
 namespace that did not exist and returned an eval id. The differential
 cases give both Servers the same inputs (built with nomad_tpu's mocks,
-carried over the wire) and hold them to the same outcome; the last four
-cases are the reference's own ``tests/test_namespaces.py`` cases that
-need no agent, against the port.
+carried over the wire) and hold them to the same outcome; the rest are
+the reference's own ``tests/test_namespaces.py`` cases against the port:
+four on a Server, then its HTTP cases on the port's server agent
+(``AgentConfig(device="cpu")``) and SDK.
 """
+
+import time
 
 import pytest
 
@@ -217,3 +220,227 @@ def test_namespace_delete_refuses_in_use(server):
         server.namespace_delete("busy")
     with pytest.raises(ValueError, match="cannot be deleted"):
         server.namespace_delete("default")
+
+
+def test_namespace_http_surface(tmp_path):
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import APIError, NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        api.namespaces.apply(Namespace(name="team-a", description="a"))
+        names = [n.name for n in api.namespaces.list()]
+        assert "team-a" in names
+        got = api.namespaces.get("team-a")
+        assert got.description == "a"
+        # registering a job into it now works end to end
+        srv = agent.server.server
+        srv.node_register(mock.node())
+        job = mock.job()
+        job.namespace = "team-a"
+        api.jobs.register(job)
+        with pytest.raises(APIError) as e:
+            api.namespaces.delete("team-a")
+        assert e.value.status == 409
+        with pytest.raises(APIError) as e:
+            api.namespaces.get("nope")
+        assert e.value.status == 404
+    finally:
+        agent.shutdown()
+
+
+def test_regions_endpoint(tmp_path):
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        assert api.status.regions() == ["global"]
+    finally:
+        agent.shutdown()
+
+
+def test_pprof_and_debug_surface(tmp_path):
+    """pprof analogs + operator debug bundle (reference command/agent/
+    pprof + operator_debug.go)."""
+    import json
+    import tarfile
+    from types import SimpleNamespace
+
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.agent.debug import debug_bundle
+    from nomad_tpu_torch.api.client import NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        threads = api.get("/v1/agent/pprof/goroutine")["profile"]
+        assert "rpc" in threads  # the fabric's worker threads show up
+        heap = api.get("/v1/agent/pprof/heap")
+        assert heap["gc_objects"] > 0 and heap["threads"] > 1
+        prof = api.get("/v1/agent/pprof/profile", params={"seconds": "0.2"})
+        assert "cumulative" in prof["profile"]
+
+        bundle = debug_bundle(api)
+        for key in ("agent_self", "metrics", "nodes", "threads", "heap"):
+            assert key in bundle, f"bundle missing {key}"
+            assert not (
+                isinstance(bundle[key], dict) and "error" in bundle[key]
+            ), f"bundle {key} errored: {bundle[key]}"
+
+        # the CLI path: archive assembly + wire-lowering of every payload
+        from nomad_tpu_torch.cli.main import cmd_operator_debug
+
+        out = str(tmp_path / "bundle.tar.gz")
+        rc = cmd_operator_debug(
+            SimpleNamespace(
+                address=f"http://127.0.0.1:{agent.http_addr[1]}",
+                token="",
+                output=out,
+            )
+        )
+        assert rc == 0
+        with tarfile.open(out) as tar:
+            names = tar.getnames()
+            assert "debug/metrics.json" in names
+            data = json.load(tar.extractfile("debug/metrics.json"))
+            assert "gauges" in data
+    finally:
+        agent.shutdown()
+
+
+def test_pprof_disabled_outside_debug_mode(tmp_path):
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import APIError, NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = False
+    cfg.enable_debug = False
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        with pytest.raises(APIError) as e:
+            api.get("/v1/agent/pprof/goroutine")
+        assert e.value.status == 404
+    finally:
+        agent.shutdown()
+
+
+def test_search_endpoints(tmp_path):
+    """Prefix + fuzzy search (reference nomad/search_endpoint.go)."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import NomadClient
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        srv = agent.server.server
+        for _ in range(2):
+            srv.node_register(mock.node())
+        job = mock.job(id="search-target")
+        srv.job_register(job)
+        srv.wait_for_evals(10)
+
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        out = api.search.prefix("search-")
+        assert out["Matches"]["jobs"] == ["search-target"]
+        # alloc ids are uuids; nothing prefix-matches "search-"
+        assert "allocs" not in out["Matches"]
+
+        out = api.search.prefix("search-", context="jobs")
+        assert list(out["Matches"].keys()) == ["jobs"]
+
+        fz = api.search.fuzzy("web")  # the mock job's group/task name
+        hits = fz["Matches"]["jobs"]
+        scopes = {tuple(h["Scope"]) for h in hits}
+        assert ("default", "search-target") in scopes
+    finally:
+        agent.shutdown()
+
+
+def test_search_is_namespace_scoped(tmp_path):
+    """Search must not leak other namespaces' eval/alloc ids (reference
+    search_endpoint.go per-namespace filtering)."""
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import NomadClient
+    from nomad_tpu_torch.structs.structs import Namespace
+
+    cfg = AgentConfig()
+    cfg.server_enabled = True
+    cfg.client_enabled = False
+    cfg.dev_mode = True
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path)
+    cfg.device = "cpu"
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        srv = agent.server.server
+        n = mock.node()
+        srv.node_register(n)
+        srv.node_heartbeat(n.id)
+        srv.namespace_upsert(Namespace(name="other"))
+        job = mock.job(id="scoped-job")
+        job.namespace = "other"
+        srv.job_register(job)
+        srv.wait_for_evals(10)
+        deadline = time.monotonic() + 10
+        other_allocs = srv.state.allocs_by_job("other", job.id)
+        while time.monotonic() < deadline and not other_allocs:
+            time.sleep(0.05)
+            other_allocs = srv.state.allocs_by_job("other", job.id)
+        assert other_allocs
+
+        api = NomadClient(f"http://127.0.0.1:{agent.http_addr[1]}")
+        # searching the DEFAULT namespace with an empty prefix must not
+        # surface other-namespace evals/allocs/jobs
+        out = api.search.prefix("", namespace="default")
+        assert "scoped-job" not in out["Matches"].get("jobs", [])
+        leaked = set(out["Matches"].get("allocs", [])) & {
+            a.id for a in other_allocs
+        }
+        assert not leaked
+        # but searching the right namespace finds them
+        out = api.search.prefix("scoped-", namespace="other")
+        assert out["Matches"]["jobs"] == ["scoped-job"]
+    finally:
+        agent.shutdown()

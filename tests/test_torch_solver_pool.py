@@ -1,14 +1,14 @@
 """The port's solver-pool tier, held to nomad_tpu's on the CPU.
 
-16 of the 18 cases of tests/test_solver_pool.py, each with the same
+The 18 cases of tests/test_solver_pool.py, each with the same
 assertions, run against nomad_tpu_torch.server.solver_pool and
 nomad_tpu_torch.scheduler.gpu.remote_solve, with members made with
 ``device="cpu"`` (the kernels' plain PyTorch twins): gossip-tag
 membership, least-loaded dispatch with cooldowns, the three fault
 surfaces (member death -> retriable DeviceFault, empty pool -> local
 path, leadership transfer -> abort/nack), the warm member engine, config
-reload and the observability surfaces. The HCL and JSON stanza cases
-wait for the port's cli.
+reload (the HCL and JSON stanzas through the port's CLI config loader)
+and the observability surfaces.
 
 Then: the tracker, the fabric and membership import neither torch nor
 jax; the launch counters stay exact under concurrent launches; a member
@@ -322,9 +322,40 @@ def test_remote_solver_followups_collected_not_applied():
 
 
 # ---------------------------------------------------------------------------
-# Config: SIGHUP reload, advertising (the HCL and JSON stanza cases wait
-# for the port's cli)
+# Config: HCL stanza, SIGHUP reload, advertising
 # ---------------------------------------------------------------------------
+
+
+def test_hcl_solver_pool_stanza(tmp_path):
+    from nomad_tpu_torch.cli.main import _load_agent_config
+
+    cfgfile = tmp_path / "agent.hcl"
+    cfgfile.write_text(
+        'server {\n  enabled = true\n}\n'
+        'solver_pool {\n'
+        '  role          = "solver"\n'
+        '  members       = ["s1", "s2"]\n'
+        '  sync_interval = "500ms"\n'
+        '}\n'
+    )
+    cfg = _load_agent_config(str(cfgfile))
+    assert cfg.solver_pool_role == "solver"
+    assert cfg.solver_pool_members == ("s1", "s2")
+    assert cfg.solver_pool_sync_interval_s == pytest.approx(0.5)
+
+
+def test_json_solver_pool_stanza(tmp_path):
+    from nomad_tpu_torch.cli.main import _load_agent_config
+
+    cfgfile = tmp_path / "agent.json"
+    cfgfile.write_text(
+        '{"solver_pool": {"role": "solver", "members": ["s9"],'
+        ' "sync_interval": "2s"}}'
+    )
+    cfg = _load_agent_config(str(cfgfile))
+    assert cfg.solver_pool_role == "solver"
+    assert cfg.solver_pool_members == ("s9",)
+    assert cfg.solver_pool_sync_interval_s == pytest.approx(2.0)
 
 
 def test_configure_advertises_and_is_idempotent():
