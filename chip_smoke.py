@@ -285,8 +285,10 @@ Phases (one JSON line each, with its seconds):
                 jobs/s, allocs/s, the CLI's ms per job, the blocking
                 queries, K1-K3 launches and resident syncs, and the
                 summed batch spans. agent.read: `job status` of one job
-                through the CLI; /v1/job/<id>/allocations for all 100 jobs
-                through NomadClient (100,000 allocs: bytes, HTTP seconds,
+                through the CLI; /v1/job/<id>/allocations for the first 20
+                jobs (all 100 until the client phase came; cut to keep
+                the run's time) through NomadClient (20,000 allocs:
+                bytes, HTTP seconds,
                 decode seconds), each job's allocs equal to the store's
                 alloc for alloc; /v1/metrics as JSON and as Prometheus
                 text (the nomad.broker, nomad.plan_queue, nomad.workers
@@ -299,7 +301,43 @@ Phases (one JSON line each, with its seconds):
                 the resident tensors and every K1/K2 tensor on cuda:0, and
                 no thread the phase started left after the agent's
                 shutdown;
-  12. mesh    — the node-sharded route (kernels also checks the sharded
+  12. client  — the client (nomad_tpu's client/, drivers/, plugins/
+                and devices/plugin.py, ported) running tasks on this
+                host: one server agent with a co-located client (agent
+                -dev's shape with a durable raft log, the batch worker
+                on cuda:0 in batches of 8, its node in dc1) and three
+                client agents joined over the fabric (dc2-dc4), each
+                node carrying meta real = "1". client.setup: c2m's
+                10,000 nodes through Node.register from 32 threads
+                beside the four real ones; 10,004 ready, each real node
+                with the mock, raw_exec and exec drivers detected and
+                the card as nvidia/gpu with its UUID. client.run: c2m's
+                job as HCL (CLIENT_HCL: its ask, constraint and spread,
+                plus meta.real, the mock driver running until stopped,
+                an update stanza, a migrate stanza and a migrating
+                ephemeral disk) through `job run` at C2M's density, 330
+                allocs a real node (BASELINE.md:11), cut where a node's
+                capacity, pinned to the host's cores at 2,300 MHz and
+                12,288 MB each (CLIENT), fits fewer (real_per_node); the
+                seconds to all running and to the deployment's
+                `successful`, Node.update_allocs calls and the allocs
+                they carried, K1's launches and shapes, the spans, the
+                peak threads. client.exec: a raw_exec task given
+                nvidia/gpu and an exec task on every real node; `alloc
+                logs` shows CUDA_VISIBLE_DEVICES = the card's UUID,
+                `alloc exec <id> echo hi` prints hi and exits 0 (a CLI
+                process of its own), `alloc fs` lists the task dir; each
+                stream's path (the forward dial or a reverse session).
+                client.drain: `node drain -enable` on dc4's node; its
+                allocs migrate to dc1-dc3 through the allocwatcher's
+                previous-alloc wait. client.restart: dc3's client agent
+                stopped with its tasks running (Client.shutdown(
+                kill_allocs=False)) and started on its data dir: the same
+                node id, the raw_exec and exec tasks reattached with
+                their pids, none restarted, its mock allocs ending as
+                client_lockstep's. client.stop: `job stop` of both jobs,
+                every alloc complete and every task process gone;
+  13. mesh    — the node-sharded route (kernels also checks the sharded
                 solves against their twins and the single-card kernels at
                 c2m_sharded's bucket, Np 100352 on 1 and 8 shards, with
                 unit caps of 1 for several selection rounds and with lists
@@ -313,7 +351,7 @@ Phases (one JSON line each, with its seconds):
                 fleet and wave solved on one snapshot on one card and on
                 8 shards (identical placements and victims), the mesh's
                 plans committed. It prints the shard -> card map;
-  13. replay  — each kernel's first call on its path replayed against its
+  14. replay  — each kernel's first call on its path replayed against its
                 twin, and timed beside its bound and the twin's time (K2
                 not donated also at the drain path's first such call, on
                 scatter_set_cases' edges, and beside index_copy): a
@@ -332,8 +370,9 @@ Phases (one JSON line each, with its seconds):
                 phase's first masked call (`tenancy`, with the nodes its
                 live groups may place on), K1-K3 at the cluster phase's
                 first calls (`cluster`), K1 (and K2, where it ran) at
-                the agent phase's (`agent`);
-  14. small   — the same three waves at 200 nodes, and at 500 nodes on
+                the agent phase's (`agent`) and at the client phase's
+                (`client`);
+  15. small   — the same three waves at 200 nodes, and at 500 nodes on
                 an 8-shard mesh, bench.py's 500-node preempt config, its
                 1,000-node drain config (20 x 100 service allocs, one
                 system job, 100 nodes drained, one eval at a time) and
@@ -358,7 +397,12 @@ Phases (one JSON line each, with its seconds):
                 through the CLI's `job run`, each eval complete before
                 the next, then a fixed list of HTTP reads;
                 agent_lockstep, which tests/test_torch_agent.py also runs
-                against nomad_tpu's agent), on the card and on the CPU
+                against nomad_tpu's agent), and a dev agent and a client
+                agent (CLIENT_SMALL: 200 nodes and two real ones, two
+                mock jobs of 20 and a raw_exec task through a drain, a
+                client agent's restart and a stop; client_lockstep, which
+                tests/test_torch_client.py also runs against nomad_tpu's
+                agents), on the card and on the CPU
                 twins: identical placements, victims, eval outcomes,
                 chain verdicts, plans, deployments, job versions, drain
                 marks, claims, services, scaling policies and events, ACL
@@ -371,8 +415,9 @@ line (K1-K3 also carry `server_launches`, their count in the server
 phase; every kernel `pool_launches`, its count in pool.c2m, and
 `lifecycle_launches`, its count in the lifecycle phase,
 `tenancy_launches`, its count in the tenancy phase,
-`cluster_launches`, its count in the cluster phase, and
-`agent_launches`, its count in the agent phase; K1 and K2 `pool`,
+`cluster_launches`, its count in the cluster phase,
+`agent_launches`, its count in the agent phase, and
+`client_launches`, its count in the client phase; K1 and K2 `pool`,
 each member's first call held and timed), and last {"ok": true,
 "device": {...}}. Any failure raises: the exit code is nonzero and no
 result line is printed. Without a CUDA
@@ -424,15 +469,15 @@ SCORE_FLOPS = 19
 SOURCES = {
     "solve_placement_compact": (
         "nomad_tpu_torch/csrc/solve_compact.cu",
-        "nomad_tpu/scheduler/tpu/kernels.py:212",
+        "nomad_tpu/scheduler/tpu/kernels.py:213",
     ),
     "solve_placement": (
         "nomad_tpu_torch/csrc/solve_dense.cu",
-        "nomad_tpu/scheduler/tpu/kernels.py:191",
+        "nomad_tpu/scheduler/tpu/kernels.py:192",
     ),
     "solve_placement_preempt": (
         "nomad_tpu_torch/csrc/solve_dense.cu",
-        "nomad_tpu/scheduler/tpu/kernels.py:359",
+        "nomad_tpu/scheduler/tpu/kernels.py:360",
     ),
     "scatter_rows": (
         "nomad_tpu_torch/csrc/scatter_rows.cu",
@@ -4182,7 +4227,10 @@ def check_cluster_run(res) -> None:
 
 # the agent phase at c2m's width: the fleet through the agent's fabric
 # from 32 threads (as cluster.setup registers it), 100 jobs of 1,000
-AGENT = {"nodes": 10000, "jobs": 100, "count": 1000, "threads": 32}
+# read_jobs: the jobs whose allocs agent.read reads back over HTTP (all
+# 100 until the client phase came; cut to keep the run's time)
+AGENT = {"nodes": 10000, "jobs": 100, "count": 1000, "threads": 32,
+         "read_jobs": 20}
 # agent_lockstep's size: 200 nodes, six jobs of 50, each eval complete
 # before the next job is submitted
 AGENT_SMALL = {"nodes": 200, "jobs": 6, "count": 50}
@@ -4280,6 +4328,27 @@ def start_agent(device: str, data_dir: str, every_solve: bool = False):
                  and agent.server.server._leader,
                  "agent: no established leader", 120)
     return agent
+
+
+def register_fleet(pool, addr, nodes: list, threads: int, what: str):
+    """Every node through Node.register at addr over the fabric, from
+    `threads` threads; a failed registration fails the check."""
+    errors = []
+
+    def register(k):
+        try:
+            for n in nodes[k::threads]:
+                pool.call(addr, "Node.register", {"node": n}, timeout_s=60.0)
+        except Exception as e:  # surfaced by the check below
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=register, args=(k,))
+          for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    check(not errors, f"{what}: node registration failed: {errors[:3]}")
 
 
 def live_threads() -> set:
@@ -4408,25 +4477,9 @@ def agent_scenario(device: str, cfg: dict, on_step) -> dict:
         srv = agent.server.server
         addr = "http://{}:{}".format(*agent.http_addr)
         api = NomadClient(addr)
-        nodes = c2m_nodes(n_nodes)
-        errors = []
-
-        def register(k):
-            try:
-                for n in nodes[k::cfg["threads"]]:
-                    pool.call(agent.server.addr, "Node.register",
-                              {"node": n}, timeout_s=60.0)
-            except Exception as e:  # surfaced by the check below
-                errors.append(repr(e))
-
         t_reg = time.perf_counter()
-        ts = [threading.Thread(target=register, args=(k,))
-              for k in range(cfg["threads"])]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join()
-        check(not errors, f"agent: node registration failed: {errors[:3]}")
+        register_fleet(pool, agent.server.addr, c2m_nodes(n_nodes),
+                       cfg["threads"], "agent")
         cluster_wait(lambda: len(srv.state.nodes()) == n_nodes,
                      "agent: the fleet did not register", 300)
         reg_s = time.perf_counter() - t_reg
@@ -4481,12 +4534,12 @@ def agent_scenario(device: str, cfg: dict, on_step) -> dict:
                                  "status", jobs[0][0])
         check(rc == 0 and "Allocations" in text,
               f"agent: job status exited {rc}")
-        # every job's allocs over HTTP, compared with the store on the
-        # JSON; the first job's also decoded into structs as the SDK's
+        # the first read_jobs jobs' allocs over HTTP, compared with the
+        # store on the JSON; the first job's also decoded into structs as the SDK's
         # jobs.allocations() does (timed: the client's share)
         http_bytes, http_s, allocs_read = 0, 0.0, 0
         decode_s = decoded = None
-        for job_id, _ in jobs:
+        for job_id, _ in jobs[:cfg["read_jobs"]]:
             t0 = time.perf_counter()
             resp = api.get(f"/v1/job/{job_id}/allocations", raw=True)
             raw = resp.read()
@@ -4605,7 +4658,7 @@ def check_agent_run(res) -> None:
     check(g["nomad.fleet"].get("nodes_ready") == n_nodes,
           f"agent: nomad.fleet.nodes_ready is "
           f"{g['nomad.fleet'].get('nodes_ready')}, want {n_nodes}")
-    check(res["allocs_read"] == n_jobs * AGENT["count"],
+    check(res["allocs_read"] == AGENT["read_jobs"] * AGENT["count"],
           f"agent: {res['allocs_read']} allocs read over HTTP")
     check(g["nomad.workers"].get("processed", 0) >= n_jobs,
           "agent: nomad.workers.processed counts fewer evals than jobs")
@@ -4731,6 +4784,1026 @@ def agent_small(device: str, nodes: list) -> dict:
         return start_agent(device, data_dir, every_solve=True), ConnPool()
 
     return agent_lockstep(boot, cli_main, [n.copy() for n in nodes])
+
+
+# ---------------------------------------------------------------------------
+# the client: agents whose clients run tasks on this host
+# ---------------------------------------------------------------------------
+
+# The client phase: c2m's fleet plus four real nodes, the co-located
+# client of a server agent (dc1) and three client agents (dc2-dc4);
+# C2M's density, 2,000,000 containers on 6,100 hosts (BASELINE.md:11),
+# is 330 allocs a host. The real nodes' capacity is pinned to the host's
+# cores at 2,300 MHz and 12,288 MB each (below what the card machine's
+# 8 cores fingerprint, 19,111-20,800 MHz and 103,424 MB), so that every
+# run places the same count
+CLIENT = {"nodes": 10000, "per_node": 330, "threads": 32, "exec_count": 4,
+          "gpu": True, "core_mhz": 2300, "core_mb": 12288}
+# client_lockstep's size: 200 simulated nodes, two real ones pinned to
+# one capacity, two mock-driver jobs of 20 and one raw_exec task
+CLIENT_SMALL = {"nodes": 200, "jobs": 2, "count": 20, "cpu": 16000,
+                "memory": 16384}
+CLIENT_DCS = ("dc1", "dc2", "dc3", "dc4")
+# c2m's ask (make_job) and what each exec-job group's task asks
+CLIENT_ASK = {"cpu": 250, "memory": 128}
+EXEC_ASK = {"cpu": 100, "memory": 64}
+# the real nodes' ids in client_lockstep (the same on both packages, so
+# that ties between them break alike)
+LOCK_NODE_IDS = ("00000000-0000-4000-8000-0000000000d1",
+                 "00000000-0000-4000-8000-0000000000d2")
+# c2m's job as an operator writes it for the real nodes: the mock driver
+# running until stopped, an update stanza (a deployment tracks health)
+# and a migrate stanza with a migrating ephemeral disk (a drain's
+# replacements wait on their previous alloc through the allocwatcher)
+CLIENT_HCL = """job "{id}" {{
+  datacenters = [{dcs}]
+
+  constraint {{
+    attribute = "${{attr.kernel.name}}"
+    value     = "linux"
+  }}
+
+  constraint {{
+    attribute = "${{meta.real}}"
+    value     = "1"
+  }}
+
+  spread {{
+    attribute = "${{node.datacenter}}"
+    weight    = 50
+  }}
+
+  update {{
+    max_parallel     = 1
+    min_healthy_time = "1s"
+    healthy_deadline = "5m"
+  }}
+
+  group "web" {{
+    count = {count}
+
+    migrate {{
+      max_parallel     = {migrate}
+      min_healthy_time = "1s"
+    }}
+
+    ephemeral_disk {{
+      migrate = true
+    }}
+
+    task "web" {{
+      driver = "mock"
+
+      resources {{
+        cpu    = 250
+        memory = 128
+      }}
+    }}
+  }}
+}}
+"""
+# one process task a real node, two groups: raw_exec printing the card
+# it was given, and exec under the native executor
+EXEC_HCL = """job "{id}" {{
+  datacenters = [{dcs}]
+
+  constraint {{
+    attribute = "${{meta.real}}"
+    value     = "1"
+  }}
+
+  group "dev" {{
+    count = {count}
+
+    constraint {{
+      distinct_hosts = true
+    }}
+
+    task "dev" {{
+      driver = "rawexec"
+
+      config {{
+        command = "/bin/sh"
+        args    = ["-c", "echo dev=$CUDA_VISIBLE_DEVICES; sleep 600"]
+      }}
+
+      resources {{
+        cpu    = 100
+        memory = 64
+{device}      }}
+    }}
+  }}
+
+  group "box" {{
+    count = {count}
+
+    constraint {{
+      distinct_hosts = true
+    }}
+
+    task "box" {{
+      driver = "exec"
+
+      config {{
+        command = "/bin/sleep"
+        args    = ["600"]
+      }}
+
+      resources {{
+        cpu    = 100
+        memory = 64
+      }}
+    }}
+  }}
+}}
+"""
+EXEC_DEVICE = """
+        device "nvidia/gpu" {
+          count = 1
+        }
+"""
+# client_lockstep's process task
+RAW_HCL = """job "{id}" {{
+  datacenters = [{dcs}]
+
+  constraint {{
+    attribute = "${{meta.real}}"
+    value     = "1"
+  }}
+
+  group "raw" {{
+    count = 1
+
+    task "raw" {{
+      driver = "rawexec"
+
+      config {{
+        command = "/bin/sleep"
+        args    = ["600"]
+      }}
+
+      resources {{
+        cpu    = 100
+        memory = 64
+      }}
+    }}
+  }}
+}}
+"""
+
+
+def hcl_dcs(dcs) -> str:
+    return ", ".join(f'"{dc}"' for dc in dcs)
+
+
+def write_hcl(root: str, job_id: str, text: str) -> str:
+    import os
+
+    path = os.path.join(root, f"{job_id}.nomad")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def start_real_agent(agent_mod, data_dir: str, dc: str, *, servers=None,
+                     device=None, dev_mode: bool = False,
+                     every_solve: bool = False, node_id=None,
+                     capacity=None):
+    """An agent whose client runs tasks on this host, of either package
+    (agent_mod is its agent module): with servers None, a server with a
+    co-located client (`agent -dev`'s shape; dev_mode keeps its raft log
+    in memory), its batch worker in batches of SERVER_BATCH (every_solve:
+    small_batch_threshold 0) and its heartbeat TTL floor an hour
+    (cluster_tune: the simulated nodes send no heartbeats); else a client
+    agent whose servers are `servers`. Its node is named real-<dc> and
+    carries meta real = "1"; node_id and capacity ((MHz, MB)) pin its id
+    and resources (client_lockstep: the same on both packages). Started;
+    a server agent is returned once it leads."""
+    import importlib
+
+    kw = dict(client_enabled=True, server_enabled=servers is None,
+              data_dir=data_dir, datacenter=dc, node_meta={"real": "1"},
+              http_port=0, rpc_port=0, dev_mode=dev_mode)
+    if servers is None:
+        kw.update(use_tpu_batch_worker=True, node_name=f"server-{dc}")
+    else:
+        kw["client_servers"] = [tuple(servers)]
+    if device is not None:
+        kw["device"] = device
+    agent = agent_mod.Agent(agent_mod.AgentConfig(**kw))
+    node = agent.client.node
+    node.name = f"real-{dc}"
+    if node_id is not None:
+        node.id = node_id
+        agent.client.state_db.put_meta("node_id", node_id)
+    if capacity is not None:
+        node.resources.cpu, node.resources.memory_mb = capacity
+        node_class = importlib.import_module(
+            agent_mod.__name__.split(".")[0] + ".structs.node_class")
+        node.computed_class = node_class.compute_node_class(node)
+    if agent.server is not None:
+        cluster_tune(agent.server)
+        if every_solve:
+            agent.server.server.scheduler_config.small_batch_threshold = 0
+    agent.start()
+    if agent.server is not None:
+        cluster_wait(lambda: agent.server.is_leader()
+                     and agent.server.server._leader,
+                     "client: no established leader", 120)
+    return agent
+
+
+def task_verbs(driver) -> list:
+    """The calls a task runner can make into a driver: the methods of
+    its package's driver base class, but its fingerprint."""
+    base = next(c for c in type(driver).__mro__ if c.__name__ == "Driver")
+    return [v for v, f in vars(base).items()
+            if callable(f) and not v.startswith("_") and v != "fingerprint"]
+
+
+def stop_keeping_tasks(agent) -> None:
+    """Stop a client agent and leave its tasks running
+    (Client.shutdown(kill_allocs=False), the reference's agent-restart
+    semantics), then the rest of the agent. One process stands for the
+    agent's here: its task runners' threads end at their next call into
+    a driver (SystemExit ends a thread quietly), as they would with the
+    agent's process, so that none of them restarts a task the next
+    incarnation has reattached."""
+    client = agent.client
+    client.shutdown(kill_allocs=False)
+
+    def gone(*args, **kwargs):
+        raise SystemExit
+
+    for driver in client.drivers.values():
+        for verb in task_verbs(driver):
+            setattr(driver, verb, gone)
+    agent.client = None
+    agent.shutdown()
+
+
+def restart_keeping_tasks(agent, start, what: str):
+    """stop_keeping_tasks(agent), then start() it again on its data dir;
+    the new agent must keep the node id. Returns the new agent."""
+    node_id = agent.client.node.id
+    stop_keeping_tasks(agent)
+    agent = start()
+    check(agent.client.node.id == node_id,
+          f"{what}: the restarted client changed its node id")
+    return agent
+
+
+def cli_job_run(cli_main, addr: str, root: str, job_id: str, text: str,
+                state, what: str, timeout_s: float) -> float:
+    """`job run -detach` of `text` written as HCL under root; waits for
+    its eval to complete. Returns the CLI call's seconds."""
+    path = write_hcl(root, job_id, text)
+    rc, out, secs = run_cli(cli_main, "-address", addr, "job", "run",
+                            "-detach", path)
+    check(rc == 0, f"{what}: job run {job_id} exited {rc}: {out[-300:]!r}")
+    eval_id = submitted_eval(out)
+    cluster_wait(lambda: state.eval_by_id(eval_id).status == "complete",
+                 f"{what}: the eval of {job_id} never completed", timeout_s)
+    return secs
+
+
+def cli_drain(cli_main, addr: str, state, node_id: str, what: str,
+              timeout_s: float) -> float:
+    """`node drain -enable` of node_id; waits for the drain to end with
+    no live alloc left on the node. Returns its seconds."""
+    t0 = time.perf_counter()
+    rc, _, _ = run_cli(cli_main, "-address", addr, "node", "drain",
+                       "-enable", node_id)
+    check(rc == 0, f"{what}: node drain exited {rc}")
+    cluster_wait(lambda: state.node_by_id(node_id).drain_strategy is None
+                 and not [a for a in state.allocs()
+                          if a.node_id == node_id
+                          and not a.client_terminal_status()],
+                 f"{what}: the drain did not end", timeout_s)
+    return time.perf_counter() - t0
+
+
+def cli_stop_jobs(cli_main, addr: str, srv, job_ids, what: str,
+                  timeout_s: float) -> None:
+    """`job stop` of each job; waits for every alloc to end on its
+    client and the cluster to settle."""
+    for job_id in job_ids:
+        rc, _, _ = run_cli(cli_main, "-address", addr, "job", "stop",
+                           job_id)
+        check(rc == 0, f"{what}: job stop {job_id} exited {rc}")
+    cluster_wait(lambda: all(a.client_terminal_status()
+                             for a in srv.state.allocs()),
+                 f"{what}: the stopped allocs did not end", timeout_s)
+    wait_client_settled(srv, f"{what} stop", timeout_s)
+
+
+def node_ready(state, node_id: str) -> bool:
+    n = state.node_by_id(node_id)
+    return n is not None and n.status == "ready"
+
+
+def task_handles(client, alloc_ids) -> dict:
+    """{(alloc id, task): the driver handle's state} a client persisted:
+    a raw_exec task's pid, an exec task's executor pid and socket."""
+    out = {}
+    for aid in alloc_ids:
+        for task in ("dev", "box", "raw"):
+            h = client.state_db.get_task_handle(aid, task)
+            if h:
+                out[(aid, task)] = dict(h.get("state", {}))
+    return out
+
+
+def pid_alive(pid) -> bool:
+    """A process exists and is not a zombie."""
+    try:
+        with open(f"/proc/{int(pid)}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, ValueError, IndexError):
+        return False
+
+
+def handle_pids(state: dict) -> list:
+    return [state[k] for k in ("pid", "daemon_pid") if state.get(k)]
+
+
+def settled(srv) -> bool:
+    """No eval pending or in flight, nothing queued to plan, no alloc
+    waiting for its client: every live alloc pending on nothing."""
+    st = srv.state
+    return (srv.eval_broker.inflight_count() == 0
+            and srv.plan_queue.depth() == 0
+            and all(e.status != "pending" for e in st.evals())
+            and all(a.client_status != "pending" for a in st.allocs()
+                    if a.desired_status == "run"))
+
+
+def wait_client_settled(srv, what: str, timeout_s: float,
+                        quiet_s: float = 1.0):
+    """settled(srv) held through quiet_s with the store's index still."""
+    t0 = time.perf_counter()
+    mark = None
+    while True:
+        check(time.perf_counter() - t0 < timeout_s,
+              f"client: {what} did not settle in {timeout_s} s")
+        if settled(srv):
+            idx = srv.state.latest_index()
+            if mark is None or mark[0] != idx:
+                mark = (idx, time.perf_counter())
+            elif time.perf_counter() - mark[1] >= quiet_s:
+                return time.perf_counter() - t0
+        else:
+            mark = None
+        time.sleep(0.05)
+
+
+def deployment_status(state, job_id: str):
+    deps = [d for d in state.deployments() if d.job_id == job_id]
+    if not deps:
+        return None
+    return max(deps, key=lambda d: d.create_index).status
+
+
+def run_cli_bytes(cli_main, *argv) -> tuple:
+    """A CLI command in this process whose output may be bytes (alloc
+    logs, alloc fs): (exit code, its standard output, seconds)."""
+    import contextlib
+    import io
+
+    raw = io.BytesIO()
+    text = io.TextIOWrapper(raw, encoding="utf-8", write_through=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli_main(list(argv))
+    text.flush()
+    return rc, raw.getvalue().decode(errors="replace"), \
+        time.perf_counter() - t0
+
+
+def cli_exec(pkg: str, addr: str, alloc_id: str, *cmd) -> tuple:
+    """`alloc exec` through the CLI in a process of its own, no input:
+    (exit code, standard output)."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{pkg}.cli", "-address", addr, "alloc",
+         "exec", alloc_id, *cmd],
+        stdin=subprocess.DEVNULL, capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, proc.stdout
+
+
+class StreamPaths:
+    """Counts the cluster's client streams (alloc logs, fs, exec) by the
+    path they took: the forward dial to the client's advertised address
+    (ConnPool.stream) or a reverse session the client parked."""
+
+    def __init__(self, cluster) -> None:
+        self.cluster = cluster
+        self.counts = {"forward": 0, "reverse": 0}
+        self._stream = cluster.pool.stream
+        self._take = cluster.take_reverse_session
+        cluster.pool.stream = self.stream
+        cluster.take_reverse_session = self.take
+
+    def stream(self, *args, **kw):
+        s = self._stream(*args, **kw)
+        self.counts["forward"] += 1
+        return s
+
+    def take(self, *args, **kw):
+        s = self._take(*args, **kw)
+        if s is not None:
+            self.counts["reverse"] += 1
+        return s
+
+    def restore(self) -> None:
+        del self.cluster.pool.stream
+        del self.cluster.take_reverse_session
+
+
+class UpdateLog:
+    """Counts the server's client alloc updates (Node.update_allocs, the
+    reference's Node.UpdateAlloc) and the allocs each carried."""
+
+    def __init__(self, srv) -> None:
+        self.srv = srv
+        self.sizes = []
+        self._real = srv.update_allocs_from_client
+        srv.update_allocs_from_client = self
+
+    def __call__(self, allocs):
+        self.sizes.append(len(allocs))
+        return self._real(allocs)
+
+    def restore(self) -> None:
+        del self.srv.update_allocs_from_client
+
+
+class PeakSampler:
+    """The process's live threads, sampled every 0.2 s on a thread of
+    its own, and its resident memory: their peaks (the memory's over
+    the whole process so far)."""
+
+    def __init__(self) -> None:
+        self.threads = 0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="peak-sampler")
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.threads = max(self.threads, threading.active_count())
+            self._stop.wait(0.2)
+
+    def start(self) -> None:
+        self._t.start()
+
+    def stop(self) -> dict:
+        import resource
+
+        self._stop.set()
+        self._t.join()
+        # ru_maxrss is in KiB on Linux: the process's peak so far
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+        return {"peak_threads": self.threads, "peak_rss_mb": rss}
+
+
+def client_names(state) -> dict:
+    """agent_names with each eval named by its job and trigger alone
+    (which of a drain's evals places a replacement depends on when the
+    client reports the migrating alloc), and each node id by its node's
+    name."""
+    names = agent_names(state)
+    for e in state.evals():
+        names[e.id] = f"eval:{e.job_id}/{e.triggered_by}"
+    for n in state.nodes():
+        names[n.id] = f"node:{n.name}"
+    return names
+
+
+def alloc_view(state, names: dict) -> list:
+    """Every alloc by (job, alloc name, node name) with its desired and
+    client status."""
+    return sorted((a.job_id, a.name, names.get(a.node_id, a.node_id),
+                   a.desired_status, a.client_status)
+                  for a in state.allocs())
+
+
+def task_event_view(state, names: dict) -> list:
+    """Each alloc's task states by their event types."""
+    return sorted(
+        (a.job_id, a.name, names.get(a.node_id, a.node_id), t,
+         tuple(e["type"] for e in ts.events))
+        for a in state.allocs() for t, ts in sorted(a.task_states.items()))
+
+
+# what differs between two runs of the same operations on a client: the
+# agent_lockstep's volatile fields, and the pids, sockets and paths of
+# the tasks the client ran
+_CLIENT_VOLATILE = re.compile(
+    r"(^|_)(index|time|at|ttl|ns|pid|timestamp)$|^wait_until$"
+    r"|^socket_path$|_dir$|_path$")
+
+
+def client_http_view(body, names: dict):
+    """http_view with the client's volatile fields dropped too."""
+    if isinstance(body, dict):
+        return {k: client_http_view(v, names) for k, v in body.items()
+                if not _CLIENT_VOLATILE.search(k)}
+    if isinstance(body, list):
+        items = [client_http_view(v, names) for v in body]
+        if items and all(isinstance(v, dict) for v in items):
+            items.sort(key=lambda v: json.dumps(v, sort_keys=True))
+        return items
+    if isinstance(body, str):
+        return names.get(body, body)
+    return body
+
+
+def restart_outcome(state, node_id: str, job_ids, names: dict) -> list:
+    """The mock allocs of job_ids that were on a node when its client
+    agent restarted: each one's desired and client status and its task's
+    event types (the same for every such alloc, as a set)."""
+    return sorted({(a.desired_status, a.client_status,
+                    tuple(e["type"] for ts in a.task_states.values()
+                          for e in ts.events))
+                   for a in state.allocs()
+                   if a.node_id == node_id and a.job_id in job_ids})
+
+
+def client_lockstep(agent_mod, cli_main, nodes: list, device=None,
+                    cfg=CLIENT_SMALL) -> dict:
+    """CLIENT_SMALL through a dev agent and one client agent of one
+    package (agent_mod, cli_main: its agent module and CLI; device: the
+    port's, None for nomad_tpu), one step at a time, each settled before
+    the next: the two real nodes (dc1 the dev agent's, dc2 the client
+    agent's; ids and capacity pinned) ready, then `nodes` registered
+    over the fabric; two mock-driver jobs of cfg["count"] as HCL through
+    `job run` (every alloc running, the deployment successful), one
+    raw_exec task; dc1's node drained through `node drain` (its allocs
+    migrate to dc2, waiting on their previous allocs); the client agent
+    stopped with its tasks left running and started again on its data
+    dir; every job stopped through `job stop`. Returns the allocs
+    (alloc_view) after each step, the task states' event types, the
+    deployments' statuses, the raw_exec task's handle kept across the
+    restart, the mock allocs' restart outcome and the bodies of
+    /v1/job/<id>/allocations and /v1/node/<id>/allocations
+    (client_http_view)."""
+    import importlib
+    import shutil
+    import tempfile
+    import urllib.request
+
+    pkg = agent_mod.__name__.split(".")[0]
+    rpc = importlib.import_module(pkg + ".rpc")
+    cap = (cfg["cpu"], cfg["memory"])
+    root = tempfile.mkdtemp(prefix="client-lockstep-")
+    pool = rpc.ConnPool()
+    dev = cl = None
+    out: dict = {"steps": {}}
+    try:
+        dev = start_real_agent(agent_mod, root + "/dc1", "dc1",
+                               device=device, dev_mode=True,
+                               every_solve=True,
+                               node_id=LOCK_NODE_IDS[0], capacity=cap)
+        srv = dev.server.server
+        state = srv.state
+        cluster_wait(lambda: node_ready(state, LOCK_NODE_IDS[0]),
+                     "lockstep: dc1's node not ready", 60)
+
+        def client_agent():
+            return start_real_agent(agent_mod, root + "/dc2", "dc2",
+                                    servers=dev.server.addr,
+                                    node_id=LOCK_NODE_IDS[1], capacity=cap)
+
+        cl = client_agent()
+        cluster_wait(lambda: node_ready(state, LOCK_NODE_IDS[1]),
+                     "lockstep: dc2's node not ready", 60)
+        for n in nodes:
+            pool.call(dev.server.addr, "Node.register", {"node": n},
+                      timeout_s=60.0)
+        cluster_wait(lambda: len(state.nodes()) == len(nodes) + 2,
+                     "lockstep: the fleet did not register", 60)
+        addr = "http://{}:{}".format(*dev.http_addr)
+        dcs = hcl_dcs(("dc1", "dc2"))
+
+        def run(job_id, text):
+            cli_job_run(cli_main, addr, root, job_id, text, state,
+                        "lockstep", 120)
+
+        mock_jobs = [f"mock-{j}" for j in range(cfg["jobs"])]
+        for job_id in mock_jobs:
+            run(job_id, CLIENT_HCL.format(id=job_id, dcs=dcs,
+                                          count=cfg["count"],
+                                          migrate=cfg["count"]))
+            cluster_wait(lambda: deployment_status(state, job_id)
+                         == "successful",
+                         f"lockstep: {job_id}'s deployment", 120)
+        run("raw", RAW_HCL.format(id="raw", dcs=dcs))
+        wait_client_settled(srv, "lockstep run", 120)
+        names = client_names(state)
+        out["steps"]["run"] = alloc_view(state, names)
+
+        cli_drain(cli_main, addr, state, LOCK_NODE_IDS[0], "lockstep", 120)
+        wait_client_settled(srv, "lockstep drain", 120)
+        names = client_names(state)
+        out["steps"]["drain"] = alloc_view(state, names)
+
+        raw = [a.id for a in state.allocs_by_job("default", "raw")
+               if a.node_id == LOCK_NODE_IDS[1]
+               and a.client_status == "running"]
+        before = task_handles(cl.client, raw)
+        check(before and all(pid_alive(p) for h in before.values()
+                             for p in handle_pids(h)),
+              "lockstep: the raw_exec task is not running on dc2")
+        cl = restart_keeping_tasks(cl, client_agent, "lockstep")
+        wait_client_settled(srv, "lockstep restart", 120, quiet_s=2.0)
+        after = task_handles(cl.client, raw)
+        out["raw_kept"] = (after == before and all(
+            pid_alive(p) for h in after.values() for p in handle_pids(h)))
+        names = client_names(state)
+        out["steps"]["restart"] = alloc_view(state, names)
+        out["restart_outcome"] = restart_outcome(
+            state, LOCK_NODE_IDS[1], set(mock_jobs), names)
+
+        cli_stop_jobs(cli_main, addr, srv, mock_jobs + ["raw"], "lockstep",
+                      120)
+        gone = all(not pid_alive(p) for h in before.values()
+                   for p in handle_pids(h))
+        check(gone, "lockstep: the raw_exec task outlived its job")
+        names = client_names(state)
+        out["steps"]["stop"] = alloc_view(state, names)
+        out["events"] = task_event_view(state, names)
+        out["deployments"] = sorted((d.job_id, d.job_version, d.status)
+                                    for d in state.deployments())
+        paths = {f"/v1/job/{j}/allocations": j for j in mock_jobs + ["raw"]}
+        paths.update({f"/v1/node/{nid}/allocations": names[nid]
+                      for nid in LOCK_NODE_IDS})
+        out["reads"] = {}
+        for path, what in paths.items():
+            with urllib.request.urlopen(addr + path, timeout=60) as resp:
+                out["reads"][what] = client_http_view(
+                    json.loads(resp.read()), names)
+        return out
+    finally:
+        for a in (cl, dev):
+            if a is not None:
+                a.shutdown()
+        pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def card_uuids() -> list:
+    """The card's UUIDs as nvidia-smi lists them (the ids a client's
+    NvidiaDevicePlugin fingerprints)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def real_per_node(nodes, want: int) -> tuple:
+    """Allocs of CLIENT_ASK a real node takes: `want`, or fewer where the
+    node's (pinned) capacity, less the exec job's two tasks, could not
+    also take a quarter more (the drained node's share, spread over the
+    other three). Returns (per node, the capacity it was cut by or
+    None)."""
+    fits = min(min((n.resources.cpu - n.reserved.cpu
+                    - 2 * EXEC_ASK["cpu"]) // CLIENT_ASK["cpu"],
+                   (n.resources.memory_mb - n.reserved.memory_mb
+                    - 2 * EXEC_ASK["memory"]) // CLIENT_ASK["memory"])
+               for n in nodes)
+    room = fits * 3 // 4
+    if room >= want:
+        return want, None
+    cap = min(((n.resources.cpu, n.resources.memory_mb) for n in nodes))
+    return room, {"cpu_mhz": cap[0], "memory_mb": cap[1],
+                  "fits": fits}
+
+
+def client_scenario(device: str, cfg: dict, on_step) -> dict:
+    """The client phase (CLIENT) on a server agent with a co-located
+    client (dc1, the GPU batch worker on `device`, a durable raft log)
+    and three client agents (dc2-dc4) joined over the fabric:
+    client.setup, client.run, client.exec, client.drain, client.restart,
+    client.stop (module docstring, phase 12). Launch counters zeroed
+    just before the first `job run` and read after the last `job stop`
+    settles."""
+    import os
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch import agent as agent_mod
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.cli.main import main as cli_main
+    from nomad_tpu_torch.metrics import Registry
+    from nomad_tpu_torch.rpc import ConnPool
+
+    metrics._install_registry(Registry())
+    trace.clear_finished()
+    cores = os.cpu_count() or 1
+    cap = (cores * cfg["core_mhz"], cores * cfg["core_mb"])
+    root = tempfile.mkdtemp(prefix="client-")
+    out: dict = {"steps": {}}
+    steps = out["steps"]
+    pool = ConnPool()
+    agents: dict = {}
+    hooks = []
+    sampler = PeakSampler()
+    sampler.start()
+    syncs = SyncLog()
+    hooks.append(syncs)
+    try:
+        # client.setup
+        t0 = time.perf_counter()
+        server = start_real_agent(agent_mod, root + "/dc1", "dc1",
+                                  device=device, capacity=cap)
+        agents["dc1"] = server
+        srv = server.server.server
+        state = srv.state
+        lead_s = time.perf_counter() - t0
+
+        def client_agent(dc):
+            return start_real_agent(agent_mod, f"{root}/{dc}", dc,
+                                    servers=server.server.addr,
+                                    capacity=cap)
+
+        for dc in CLIENT_DCS[1:]:
+            agents[dc] = client_agent(dc)
+        real_ids = {dc: a.client.node.id for dc, a in agents.items()}
+        t_reg = time.perf_counter()
+        register_fleet(pool, server.server.addr, c2m_nodes(cfg["nodes"]),
+                       cfg["threads"], "client")
+        want_nodes = cfg["nodes"] + len(CLIENT_DCS)
+        cluster_wait(lambda: sum(1 for n in state.nodes()
+                                 if n.status == "ready") == want_nodes,
+                     f"client: {want_nodes} nodes not ready", 300)
+        reg_s = time.perf_counter() - t_reg
+        uuids = card_uuids() if cfg["gpu"] else []
+        real = {dc: state.node_by_id(nid) for dc, nid in real_ids.items()}
+        for dc, n in real.items():
+            for drv in ("mock", "rawexec", "exec"):
+                info = n.drivers.get(drv)
+                check(info is not None and info.detected and info.healthy
+                      and n.attributes.get(f"driver.{drv}") == "1",
+                      f"client: driver.{drv} not detected on {dc}: "
+                      f"{info and info.health_description!r}")
+            if cfg["gpu"]:
+                gpus = [d for d in (n.resources.devices or [])
+                        if d.vendor == "nvidia" and d.type == "gpu"]
+                check(gpus and sorted(i.id for d in gpus
+                                      for i in d.instances) == uuids,
+                      f"client: {dc}'s nvidia/gpu device does not carry "
+                      f"the card's UUID {uuids}")
+        steps["setup"] = {
+            "wall_s": time.perf_counter() - t0, "leader_s": lead_s,
+            "register_s": reg_s, "nodes_ready": want_nodes,
+            "real_nodes": {dc: {"cpu_mhz": n.resources.cpu,
+                                "memory_mb": n.resources.memory_mb,
+                                "drivers": sorted(
+                                    d for d, i in n.drivers.items()
+                                    if i.detected),
+                                "devices": [f"{d.vendor}/{d.type}/{d.name}"
+                                            for d in (n.resources.devices
+                                                      or [])]}
+                           for dc, n in real.items()},
+            "card_uuids": uuids}
+        on_step("client.setup", steps["setup"]["wall_s"],
+                **{k: v for k, v in steps["setup"].items()
+                   if k != "wall_s"})
+
+        # client.run: one service job of 4 x per_node mock allocs
+        addr = "http://{}:{}".format(*server.http_addr)
+        per, cut = real_per_node(real.values(), cfg["per_node"])
+        check(per > 0, "client: a real node fits no c2m alloc")
+        count = per * len(CLIENT_DCS)
+        dcs = hcl_dcs(CLIENT_DCS)
+        updates = UpdateLog(srv)
+        hooks.append(updates)
+        paths = StreamPaths(server.server)
+        hooks.append(paths)
+        tk.reset_launch_counts()
+        m0 = metrics.snapshot()
+        t_run = time.perf_counter()
+        job_run_s = cli_job_run(cli_main, addr, root, "c2m-real",
+                                CLIENT_HCL.format(id="c2m-real", dcs=dcs,
+                                                  count=count, migrate=per),
+                                state, "client", 300)
+        placed_s = time.perf_counter() - t_run
+
+        def running(job_id):
+            return [a for a in state.allocs_by_job("default", job_id)
+                    if a.client_status == "running"
+                    and a.desired_status == "run"]
+
+        cluster_wait(lambda: len(running("c2m-real")) == count,
+                     f"client: {count} allocs not running", 600)
+        running_s = time.perf_counter() - t_run
+        cluster_wait(lambda: deployment_status(state, "c2m-real")
+                     == "successful",
+                     "client: the deployment did not succeed", 600)
+        success_s = time.perf_counter() - t_run
+        m1 = metrics.snapshot()
+        traces = batch_traces()
+        trace.clear_finished()
+        per_node = {dc: sum(1 for a in running("c2m-real")
+                            if a.node_id == nid)
+                    for dc, nid in real_ids.items()}
+        check(all(v == per for v in per_node.values()),
+              f"client: allocs a real node {per_node}, want {per} each")
+        run = wave_numbers(m0, m1, traces, running_s, 1, count)
+        run.update(
+            allocs=count, per_node=per, cut=cut,
+            job_run_ms=1e3 * job_run_s, placed_s=placed_s,
+            all_running_s=running_s, deployment_successful_s=success_s,
+            update_allocs_calls=len(updates.sizes),
+            update_allocs_allocs=sum(updates.sizes),
+            update_allocs_max=max(updates.sizes, default=0),
+            launches=launch_counts(), threads=threading.active_count())
+        steps["run"] = run
+        on_step("client.run", running_s,
+                **{k: v for k, v in run.items() if k != "wall_s"})
+
+        # client.exec: a raw_exec task (given the card) and an exec task
+        # on every real node; logs, exec and fs through the CLI
+        t_exec = time.perf_counter()
+        n_exec = cfg["exec_count"]
+        cli_job_run(cli_main, addr, root, "procs", EXEC_HCL.format(
+            id="procs", dcs=dcs, count=n_exec,
+            device=EXEC_DEVICE if cfg["gpu"] else ""), state, "client", 300)
+        cluster_wait(lambda: len(running("procs")) == 2 * n_exec,
+                     "client: the process tasks are not running", 300)
+        node_dc = {nid: dc for dc, nid in real_ids.items()}
+        calls = {}
+        for a in sorted(running("procs"), key=lambda a: a.name):
+            dc = node_dc[a.node_id]
+            f0 = dict(paths.counts)
+            if a.task_group == "dev":
+                want = "dev=" + ",".join(uuids)
+                got = ""
+                for _ in range(100):
+                    rc, got, _ = run_cli_bytes(cli_main, "-address", addr,
+                                               "alloc", "logs", a.id, )
+                    if want in got:
+                        break
+                    time.sleep(0.1)
+                check(rc == 0 and f"{want}\n" in got,
+                      f"client: alloc logs of {a.name} on {dc} show "
+                      f"{got!r}, want {want!r}")
+            rc, got = cli_exec("nomad_tpu_torch", addr, a.id, "echo", "hi")
+            check(rc == 0 and got.strip() == "hi",
+                  f"client: alloc exec on {dc}'s {a.name} gave {rc} "
+                  f"{got!r}")
+            rc, listing, _ = run_cli_bytes(cli_main, "-address", addr,
+                                           "alloc", "fs", a.id)
+            check(rc == 0 and a.task_group in listing,
+                  f"client: alloc fs of {a.name} on {dc} lists "
+                  f"{listing!r}")
+            calls[f"{dc}/{a.task_group}"] = {
+                k: paths.counts[k] - f0[k] for k in f0}
+        steps["exec"] = {"wall_s": time.perf_counter() - t_exec,
+                         "paths": calls, "streams": dict(paths.counts)}
+        on_step("client.exec", steps["exec"]["wall_s"],
+                **{k: v for k, v in steps["exec"].items() if k != "wall_s"})
+
+        # client.drain: dc4's node through `node drain`
+        t_drain = time.perf_counter()
+        drain_s = cli_drain(cli_main, addr, state, real_ids["dc4"],
+                            "client", 600)
+        cluster_wait(lambda: len(running("c2m-real")) == count,
+                     "client: the drained allocs are not running again",
+                     600)
+        wait_client_settled(srv, "client drain", 600)
+        on_three = {dc: sum(1 for a in running("c2m-real")
+                            if a.node_id == nid)
+                    for dc, nid in real_ids.items()}
+        check(on_three["dc4"] == 0 and sum(on_three.values()) == count,
+              f"client: after the drain {on_three}, want {count} on "
+              "dc1-dc3")
+        procs_left = sorted(a.name for a in running("procs"))
+        steps["drain"] = {"wall_s": time.perf_counter() - t_drain,
+                          "drain_s": drain_s, "per_node": on_three,
+                          "procs_running": procs_left,
+                          "update_allocs_calls": len(updates.sizes)}
+        on_step("client.drain", steps["drain"]["wall_s"],
+                **{k: v for k, v in steps["drain"].items()
+                   if k != "wall_s"})
+
+        # client.restart: dc3's client agent stopped with its tasks
+        # running, started again on its data dir
+        t_rs = time.perf_counter()
+        nid = real_ids["dc3"]
+        procs = [a.id for a in running("procs") if a.node_id == nid]
+        before = task_handles(agents["dc3"].client, procs)
+        check(len(before) == 2 and all(
+            pid_alive(p) for h in before.values() for p in handle_pids(h)),
+              f"client: dc3's process tasks are not running: {before}")
+        restarts0 = {a.id: {t: ts.restarts for t, ts in
+                            a.task_states.items()}
+                     for a in state.allocs() if a.id in procs}
+        mock_ids = {a.id for a in running("c2m-real") if a.node_id == nid}
+        agents["dc3"] = restart_keeping_tasks(
+            agents.pop("dc3"), lambda: client_agent("dc3"), "client")
+        wait_client_settled(srv, "client restart", 600, quiet_s=2.0)
+        after = task_handles(agents["dc3"].client, procs)
+        check(after == before and all(
+            pid_alive(p) for h in after.values() for p in handle_pids(h)),
+              f"client: dc3's process tasks were not reattached: {before} "
+              f"-> {after}")
+        restarts1 = {a.id: {t: ts.restarts for t, ts in
+                            a.task_states.items()}
+                     for a in state.allocs() if a.id in procs}
+        check(restarts1 == restarts0 and all(
+            a.client_status == "running" for a in state.allocs()
+            if a.id in procs),
+              f"client: a process task restarted: {restarts0} -> "
+              f"{restarts1}")
+        names = client_names(state)
+        outcome = sorted({(a.desired_status, a.client_status,
+                           tuple(e["type"] for ts in a.task_states.values()
+                                 for e in ts.events))
+                          for a in state.allocs() if a.id in mock_ids})
+        steps["restart"] = {"wall_s": time.perf_counter() - t_rs,
+                            "node_id_kept": True, "pids": {
+                                names[aid] + "/" + task: handle_pids(h)
+                                for (aid, task), h in before.items()},
+                            "mock_allocs": len(mock_ids)}
+        out["restart_outcome"] = outcome
+        on_step("client.restart", steps["restart"]["wall_s"],
+                **{k: v for k, v in steps["restart"].items()
+                   if k != "wall_s"}, mock_outcome=outcome)
+
+        # client.stop: both jobs through `job stop`
+        t_stop = time.perf_counter()
+        proc_ids = [a.id for a in state.allocs_by_job("default", "procs")]
+        all_procs = {}
+        for a in agents.values():
+            all_procs.update(task_handles(a.client, proc_ids))
+        cli_stop_jobs(cli_main, addr, srv, ("c2m-real", "procs"), "client",
+                      600)
+        stop_s = time.perf_counter() - t_stop
+        left = [p for h in all_procs.values() for p in handle_pids(h)
+                if pid_alive(p)]
+        check(not left, f"client: task processes left after job stop: "
+              f"{left}")
+        statuses = {}
+        for a in state.allocs():
+            statuses[a.client_status] = statuses.get(a.client_status, 0) + 1
+        check(set(statuses) == {"complete"},
+              f"client: allocs after the stop: {statuses}")
+        out["launches"] = launch_counts()
+        steps["stop"] = {"wall_s": stop_s, "allocs": statuses,
+                         "processes_checked": sum(
+                             len(handle_pids(h))
+                             for h in all_procs.values()),
+                         "update_allocs_calls": len(updates.sizes),
+                         "update_allocs_allocs": sum(updates.sizes)}
+        on_step("client.stop", stop_s,
+                **{k: v for k, v in steps["stop"].items() if k != "wall_s"})
+        out["counters"] = metrics.snapshot()["counters"]
+        out["resident"] = srv.tpu_worker._resident
+        # each compact solve's sync of the worker's resident tensors: a
+        # delta runs K2
+        out["syncs"] = syncs.of(out["resident"])
+    finally:
+        for h in reversed(hooks):
+            h.restore()
+        t0 = time.perf_counter()
+        for a in reversed(list(agents.values())):
+            a.shutdown()
+        pool.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        out.update(sampler.stop())
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def check_client_run(res) -> None:
+    """No device failover or failed batch, K1 on the path, its resident
+    tensors on cuda:0."""
+    c = res["counters"]
+    check(c.get("nomad.worker.device_failover", 0) == 0,
+          "client: a device failover")
+    check(c.get("nomad.worker.invoke.failed", 0) == 0,
+          "client: a batch failed to solve or commit")
+    check(res["launches"]["solve_placement_compact"] > 0,
+          "client: K1 was not launched on the client path")
+    cuda0 = torch.device("cuda", 0)
+    r = res["resident"]
+    check(r is not None and r._cap_dev.device == cuda0
+          and r._used_dev.device == cuda0,
+          "client: the worker's resident tensors are not on cuda:0")
+
+
+def client_small(device: str, nodes: list) -> dict:
+    """client_lockstep on the port's agents, the batch worker on
+    `device` with every solve on it (small_batch_threshold 0)."""
+    from nomad_tpu_torch import agent as agent_mod
+    from nomad_tpu_torch.cli.main import main as cli_main
+
+    return client_lockstep(agent_mod, cli_main, [n.copy() for n in nodes],
+                           device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -5075,6 +6148,31 @@ def replay_server(srec: dict, launches: dict) -> dict:
         h.update(bound(h.pop("nbytes"), h.pop("ops", 0)))
         held[name] = h
     return held
+
+
+class ShapeLog(Recorder):
+    """A Recorder that also logs every K1 call's shape."""
+
+    def __init__(self, mod, name: str) -> None:
+        super().__init__(mod, name)
+        self.shapes = []
+
+    def __call__(self, *args, **kwargs):
+        cap, asks, counts = args[0], args[2], args[3]
+        self.shapes.append((int(cap.shape[0]), int(asks.shape[0]),
+                            int((counts > 0).sum()),
+                            int(kwargs.get("max_count", 0))))
+        return super().__call__(*args, **kwargs)
+
+
+def client_recorders() -> dict:
+    """server_recorders with K1's recorder logging every call's shape."""
+    recs = server_recorders()
+    recs["solve_placement_compact"].restore()
+    recs["solve_placement_compact"] = ShapeLog(solver_mod,
+                                               "solve_placement_compact")
+    return recs
+
 
 
 # ---------------------------------------------------------------------------
@@ -6155,7 +7253,36 @@ def main() -> int:
           shutdown_s=ares["shutdown_s"])
     del ares
 
-    # 12. the mesh route: c2m_sharded at full width, then the preempt wave
+    # 12. the client: a server agent with a co-located client and three
+    #    client agents joined over the fabric, c2m's fleet beside their
+    #    four real nodes, c2m's job at C2M's density on the real nodes
+    #    through the CLI, process tasks given the card, a drain, a
+    #    client agent's restart with its tasks left running, a stop;
+    #    launch counters zeroed just before the first job run and read
+    #    after the stop settles
+    t_cl = time.perf_counter()
+    clrec = client_recorders()
+    trace.set_enabled(True)
+    try:
+        clres = client_scenario("cuda", CLIENT, on_server)
+    finally:
+        trace.set_enabled(False)
+        for r in reversed(list(clrec.values())):
+            r.restore()
+    client_launches = clres["launches"]
+    check(all(t.is_cuda for r in clrec.values() for t in r.tensors),
+          "a tensor of the client path is on the host")
+    check_client_run(clres)
+    k1_shapes = sorted(set(clrec["solve_placement_compact"].shapes))
+    phase("client", t_cl, launches=client_launches, syncs=clres["syncs"],
+          k1_shapes=[dict(zip(("np", "gp", "live_groups", "max_count"), s))
+                     for s in k1_shapes],
+          peak_threads=clres["peak_threads"],
+          peak_rss_mb=clres["peak_rss_mb"], shutdown_s=clres["shutdown_s"])
+    client_outcome = clres["restart_outcome"]
+    del clres
+
+    # 13. the mesh route: c2m_sharded at full width, then the preempt wave
     #    on 8 shards, each with the launch counters zeroed around it
     t_mesh = time.perf_counter()
     trace.set_enabled(True)
@@ -6168,7 +7295,7 @@ def main() -> int:
         launches[name] = res["launches"]
     phase("mesh", t_mesh, launches={n: launches[n] for n in mesh_paths})
 
-    # 13. replay each path's calls against the twins, and time them
+    # 14. replay each path's calls against the twins, and time them
     t0 = time.perf_counter()
     kernels = replay(rec, launches, drain_rec, dev, args.seed)
     kernels[1:1] = replay_dense(prec, launches, k4_placing)
@@ -6225,15 +7352,28 @@ def main() -> int:
     kernels[names.index("scatter_rows")]["agent_launches_copy"] = \
         agent_launches["scatter_rows_copy"]
     del arec
+    cl_held = replay_server({k: r for k, r in clrec.items()
+                             if client_launches[k] > 0}, client_launches)
+    check("solve_placement_compact" in cl_held,
+          "no client-path K1 call held")
+    for k in kernels:
+        k["client_launches"] = client_launches.get(k["name"], 0)
+        if k["name"] in cl_held:
+            k["client"] = cl_held[k["name"]]
+    kernels[names.index("scatter_rows")]["client_launches_copy"] = \
+        client_launches["scatter_rows_copy"]
+    del clrec
     phase("replay", t0)
 
-    # 14. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
+    # 15. the same waves at 200 nodes, at 500 nodes on an 8-shard mesh,
     #    bench.py's preempt config and its drain config, its pipeline
     #    config through the batch worker driven by hand, the lifecycle's
     #    five steps and the tenancy steps at 200 nodes driven by hand,
     #    the three-server cluster one eval at a time through a kill
-    #    and a restart, and the server agent one HCL job at a time
-    #    through the CLI with its HTTP reads: card == CPU twins
+    #    and a restart, the server agent one HCL job at a time
+    #    through the CLI with its HTTP reads, and a dev agent and a
+    #    client agent running tasks through a drain, a restart and a
+    #    stop: card == CPU twins
     t0 = time.perf_counter()
     small_gpu = three_waves("cuda", 200, 8, 200, 2)
     small_cpu = three_waves("cpu", 200, 8, 200, 2)
@@ -6322,6 +7462,20 @@ def main() -> int:
     for key in ag_gpu:
         check(ag_gpu[key] == ag_cpu[key],
               f"agent: card and CPU twins differ in {key}")
+    # the client at CLIENT_SMALL: 200 nodes, two real ones, two mock jobs
+    # of 20 and a raw_exec task through a drain, a restart and a stop
+    cli_nodes = c2m_nodes(CLIENT_SMALL["nodes"])
+    cli_gpu = client_small("cuda", cli_nodes)
+    cli_cpu = client_small("cpu", cli_nodes)
+    for key in cli_gpu:
+        check(cli_gpu[key] == cli_cpu[key],
+              f"client: card and CPU twins differ in {key}")
+    check(cli_gpu["raw_kept"], "client lockstep: the raw_exec task was "
+          "not reattached across the restart")
+    check(client_outcome == cli_gpu["restart_outcome"],
+          f"client: the restarted agent's mock allocs ended as "
+          f"{client_outcome}, client_lockstep's as "
+          f"{cli_gpu['restart_outcome']}")
     phase("small", t0, allocs_compared=len(small_gpu["placed"]),
           mesh_allocs_compared=len(mesh_gpu["placed"]),
           preempt_placed=len(pre_gpu["placed"]),
@@ -6345,7 +7499,10 @@ def main() -> int:
           cluster_placements=sum(n for _, n in cl_gpu["placed"]),
           cluster_evals=len(cl_gpu["evals"]),
           agent_allocs_compared=len(ag_gpu["allocs"]),
-          agent_reads_compared=len(ag_gpu["reads"]))
+          agent_reads_compared=len(ag_gpu["reads"]),
+          client_allocs_compared=len(cli_gpu["steps"]["stop"]),
+          client_reads_compared=len(cli_gpu["reads"]),
+          client_restart_outcome=cli_gpu["restart_outcome"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

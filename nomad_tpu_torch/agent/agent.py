@@ -1,4 +1,4 @@
-"""The agent process: an embedded server plus the HTTP API.
+"""The agent process: embedded server and/or client plus the HTTP API.
 
 Port of ``nomad_tpu/agent/agent.py``. Reference:
 command/agent/agent.go + command/agent/command.go — `nomad agent` reads
@@ -6,15 +6,13 @@ config, conditionally starts an in-process server and/or client, wires
 them together (a co-located client talks to its own server first), and
 serves HTTP.
 
-The port builds a server agent. Its client (``nomad_tpu_torch.client``)
-comes with ROADMAP A12 part 8: until then a config with
-``client_enabled`` (``-dev``, ``-client``) raises ``ValueError`` naming
-that part, and never starts without the client; nodes register over the
-server's RPC fabric (``Node.register``). ``AgentConfig.device`` names the
-card the server's schedulers solve on ("cuda" unless the caller asks for
-"cpu"); it goes into the ``SchedulerConfig`` the ``ClusterServer`` hands
-its ``Server``, and "cuda" with no card raises at construction, as the
-solver does.
+The agent runs a server, a client, or both. A co-located client talks
+to its own server through the cluster endpoints (``InProcessClusterRPC``);
+a client-only agent dials its servers over the RPC fabric
+(``ClusterRPC``). ``AgentConfig.device`` names the card the server's
+schedulers solve on ("cuda" unless the caller asks for "cpu"); it goes
+into the ``SchedulerConfig`` the ``ClusterServer`` hands its ``Server``,
+and "cuda" with no card raises at construction, as the solver does.
 """
 
 from __future__ import annotations
@@ -23,16 +21,85 @@ import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..client import Client
+from ..client.client import default_data_dir
 from ..scheduler.context import SchedulerConfig
-from ..server.cluster import ClusterServer
+from ..server.cluster import ClusterRPC, ClusterServer
 
 logger = logging.getLogger("nomad_tpu_torch.agent")
 
-CLIENT_NOT_PORTED = (
-    "the client agent (nomad_tpu_torch.client) is not ported yet "
-    "(ROADMAP A12 part 8): run a server agent and register nodes over "
-    "its RPC fabric (Node.register)"
-)
+class InProcessClusterRPC:
+    """Client→server verbs dispatched through the local ClusterServer's
+    forwarding endpoints (no socket hop; leader forwarding intact)."""
+
+    def __init__(self, cluster: ClusterServer) -> None:
+        self.cluster = cluster
+
+    def reverse_addrs(self) -> list:
+        """The co-located server's fabric addr: reverse sessions parked
+        there serve streams even when the advertised forward-dial
+        address is unreachable."""
+        return [tuple(self.cluster.rpc.addr)]
+
+    def register(self, node) -> float:
+        return self.cluster.rpc_self("Node.register", {"node": node})
+
+    def alloc_client_addr(self, alloc_id: str):
+        out = self.cluster.rpc_self("Alloc.client_addr", {"alloc_id": alloc_id})
+        return tuple(out) if out else (None, None)
+
+    def heartbeat(self, node_id: str) -> float:
+        return self.cluster.rpc_self("Node.heartbeat", {"node_id": node_id})
+
+    def get_client_allocs(self, node_id: str, min_index: int, timeout_s: float):
+        resp = self.cluster.rpc_self(
+            "Node.get_client_allocs",
+            {"node_id": node_id, "min_index": min_index, "timeout_s": timeout_s},
+        )
+        return resp["allocs"], resp["index"]
+
+    def update_allocs(self, allocs) -> None:
+        self.cluster.rpc_self("Node.update_allocs", {"allocs": allocs})
+
+    def volumes_for_alloc(self, alloc_id: str) -> list:
+        return self.cluster.rpc_self(
+            "Volume.for_alloc", {"alloc_id": alloc_id}
+        )
+
+    def services_register(self, regs: list) -> None:
+        self.cluster.rpc_self("Service.register", {"regs": regs})
+
+    def services_deregister_alloc(self, alloc_id: str) -> None:
+        self.cluster.rpc_self(
+            "Service.deregister_alloc", {"alloc_id": alloc_id}
+        )
+
+    def service_lookup(self, namespace: str, name: str) -> list:
+        return self.cluster.rpc_self(
+            "Service.get", {"namespace": namespace, "name": name}
+        )
+
+    def secret_read(self, namespace: str, path: str, token: str = ""):
+        return self.cluster.rpc_self(
+            "Secrets.read",
+            {"namespace": namespace, "path": path, "token": token},
+        )
+
+    def derive_token(self, alloc_id: str, task_name: str) -> dict:
+        return self.cluster.rpc_self(
+            "Secrets.derive_token",
+            {"alloc_id": alloc_id, "task_name": task_name},
+        )
+
+    def renew_token(self, accessor_id: str) -> float:
+        return self.cluster.rpc_self(
+            "Secrets.renew_token", {"accessor_id": accessor_id}
+        )
+
+    def revoke_token(self, accessor_id: str) -> None:
+        self.cluster.rpc_self(
+            "Secrets.revoke_token", {"accessor_id": accessor_id}
+        )
 
 
 def _tls_fingerprint(cert_file: str, key_file: str, ca_file: str = "") -> str:
@@ -58,14 +125,13 @@ class AgentConfig:
     node_name: str = ""
     region: str = "global"
     datacenter: str = "dc1"
-    data_dir: str = "/tmp/nomad_tpu"
+    data_dir: str = field(default_factory=default_data_dir)
     bind_addr: str = "127.0.0.1"
     # server stanza
     server_enabled: bool = False
     bootstrap_expect: int = 1
     rpc_port: int = 0  # 0 = ephemeral (reference default 4647)
-    # client stanza (read by the client agent, ROADMAP A12 part 8; the
-    # config loader fills these fields already)
+    # client stanza
     client_enabled: bool = False
     client_servers: list = field(default_factory=list)  # [(host, port)]
     node_class: str = ""
@@ -208,8 +274,6 @@ class AgentConfig:
 
 class Agent:
     def __init__(self, config: AgentConfig) -> None:
-        if config.client_enabled:
-            raise ValueError(CLIENT_NOT_PORTED)
         if (config.tls_http or config.tls_rpc) and not (
             config.tls_cert_file and config.tls_key_file
         ):
@@ -245,7 +309,7 @@ class Agent:
                 config.tls_cert_file, config.tls_key_file, config.tls_ca_file
             )
         self.server: Optional[ClusterServer] = None
-        self.client = None  # the client agent comes with A12 part 8
+        self.client: Optional[Client] = None
         self.http = None
 
         if config.server_enabled:
@@ -306,6 +370,40 @@ class Agent:
                 list(config.vault_allowed_policies)
                 if config.vault_allowed_policies is not None
                 else None
+            )
+        if config.client_enabled:
+            if self.server is not None:
+                # Co-located client: in-process, but through the CLUSTER
+                # endpoints so writes forward to the leader — a client on
+                # a follower server agent must still register (binding
+                # ServerRPC to the local core server would NotLeaderError
+                # forever).
+                rpc = InProcessClusterRPC(self.server)
+            else:
+                if not config.client_servers:
+                    raise ValueError("client agent needs `servers` addresses")
+                rpc = ClusterRPC(
+                    [tuple(a) for a in config.client_servers],
+                    rpc_secret=self.keyring,
+                    tls_context=(
+                        self.fabric_tls[1] if self.fabric_tls else None
+                    ),
+                )
+            self.client = Client(
+                rpc,
+                driver_plugins=config.driver_plugins,
+                device_plugins=config.device_plugins,
+                chroot_env=config.chroot_env,
+                host_volumes=config.host_volumes,
+                node_meta=config.node_meta,
+                reserved=config.reserved,
+                data_dir=config.data_dir,
+                datacenter=config.datacenter,
+                node_class=config.node_class,
+                rpc_secret=self.keyring,
+                advertise_host=config.bind_addr,
+                csi_plugins=config.csi_plugins,
+                tls=self.fabric_tls,
             )
         if self.server is not None:
             from .http import HTTPAgentServer
@@ -404,8 +502,12 @@ class Agent:
             self.server.start()
             if self.config.server_join:
                 self.server.join([tuple(a) for a in self.config.server_join])
+        # HTTP before the client: the API must come up even if client
+        # registration is still waiting on a leader.
         if self.http is not None:
             self.http.start()
+        if self.client is not None:
+            self.client.start()
         if self.config.telemetry_statsd_address:
             from ..metrics import StatsdSink
 
@@ -444,6 +546,8 @@ class Agent:
           ssl contexts shared by every fabric socket and the HTTPS
           listener — subsequent handshakes present the new chain while
           established connections keep flowing (nothing is dropped).
+        - client node_meta: replaced and re-registered so schedulers see
+          new constraint/spread targets.
         - vault_allowed_policies: derivation allowlist swap.
 
         Everything else (ports, server/client enablement, data_dir,
@@ -516,6 +620,13 @@ class Agent:
             old.tls_cert_file = new_config.tls_cert_file
             old.tls_key_file = new_config.tls_key_file
             old.tls_ca_file = new_config.tls_ca_file
+        if (
+            self.client is not None
+            and new_config.node_meta != old.node_meta
+        ):
+            self.client.update_node_meta(new_config.node_meta)
+            old.node_meta = dict(new_config.node_meta)
+            changed.append("client_node_meta")
         if (
             new_config.trace_enabled != old.trace_enabled
             or new_config.trace_buffer != old.trace_buffer
@@ -645,6 +756,8 @@ class Agent:
             self.datadog = None
         if self.http is not None:
             self.http.shutdown()
+        if self.client is not None:
+            self.client.shutdown()
         if self.server is not None:
             self.server.shutdown()
 

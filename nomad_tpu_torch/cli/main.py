@@ -128,12 +128,7 @@ def cmd_agent(args) -> int:
     if args.tpu_scheduler:
         cfg.use_tpu_batch_worker = True
 
-    try:
-        agent = Agent(cfg)
-    except ValueError as e:
-        # -dev and -client need the client agent (ROADMAP A12 part 8)
-        print(f"Error: {e}", file=sys.stderr)
-        return 1
+    agent = Agent(cfg)
     agent.start()
     if agent.http_addr:
         print(f"==> HTTP API: http://{agent.http_addr[0]}:{agent.http_addr[1]}")

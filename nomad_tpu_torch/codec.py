@@ -60,6 +60,11 @@ def _registry() -> dict[str, type]:
 
         _REGISTRY[ACLPolicy.__name__] = ACLPolicy
         _REGISTRY[ACLToken.__name__] = ACLToken
+        # the driver plugin boundary's payloads (drivers/plugin.py)
+        from .drivers import base as driver_base
+
+        for name in ("Fingerprint", "TaskConfig", "ExitResult", "TaskStatus"):
+            _REGISTRY[name] = getattr(driver_base, name)
     return _REGISTRY
 
 

@@ -12,10 +12,10 @@ Placements by (job, alloc name, node), eval outcomes and the bodies of
 a fixed list of HTTP reads (minted ids named by what they name, raft
 indexes and times dropped) must be equal. Tolerance: exact.
 
-Then what the port's agent refuses until its missing parts come: a
-client agent (``client_enabled``, ``agent -dev``, ``agent -client``;
-ROADMAP A12 part 8), ``operator vet`` (part 9), and a "cuda" agent with
-no card. Last, the solver observatory's compile ledger (``record_call``,
+Then the client agent (``client_enabled``, ``agent -dev``, ``agent
+-client``) running an alloc and joining a server, and what the port's
+agent refuses until its missing parts come: ``operator vet`` (ROADMAP
+A12 part 9), and a "cuda" agent with no card. Last, the solver observatory's compile ledger (``record_call``,
 ``compiles``, ``steady_recompiles``) against nomad_tpu's on one call
 sequence, and ``/v1/solver/status`` with the port's built variants under
 the reference's ``jit_cache_sizes`` key.
@@ -116,24 +116,136 @@ def test_agent_lockstep_matches_nomad_tpu(monkeypatch):
         f"alloc:{job}/{name}" for job, name, _ in tout["allocs"]}
 
 
+def _mock_job(datacenter, count=1):
+    from nomad_tpu_torch import mock
+
+    job = mock.job()
+    job.datacenters = [datacenter]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.tasks[0].driver = "mock"
+    tg.tasks[0].config = {"run_for": "60s"}
+    return job
+
+
 def test_client_enabled_raises_naming_part_8(tmp_path):
+    """A dev agent's client (``AgentConfig.dev()``, the server on the
+    CPU) registers its node, fingerprints its drivers and runs an alloc
+    the server places on it; ``client_enabled`` without servers is the
+    refusal left. (The name is the case's from before the client was
+    ported, when this config raised.)"""
     from nomad_tpu_torch.agent import Agent, AgentConfig
 
-    for cfg in (AgentConfig.dev(),
-                AgentConfig(client_enabled=True, device="cpu")):
-        cfg.data_dir = str(tmp_path)
-        with pytest.raises(ValueError, match="A12 part 8"):
-            Agent(cfg)
+    from torch_agent_kit import wait_until
+
+    with pytest.raises(ValueError, match="servers"):
+        Agent(AgentConfig(client_enabled=True, device="cpu",
+                          data_dir=str(tmp_path / "lone")))
+    cfg = AgentConfig.dev()
+    cfg.device = "cpu"
+    cfg.http_port = 0
+    cfg.data_dir = str(tmp_path / "dev")
+    agent = Agent(cfg)
+    agent.start()
+    try:
+        assert agent.client.wait_registered(15)
+        state = agent.server.server.state
+        node = state.node_by_id(agent.client.node.id)
+        assert node.status == "ready"
+        assert {"driver.mock", "driver.rawexec"} <= set(node.attributes)
+        job = _mock_job(node.datacenter)
+        agent.server.rpc_self("Job.register", {"job": job})
+        assert wait_until(lambda: [
+            a for a in state.allocs_by_job(job.namespace, job.id)
+            if a.client_status == "running"
+            and a.node_id == node.id], 20)
+    finally:
+        agent.shutdown()
+
+
+def _cli_agent(args, cwd):
+    """Start ``python -m nomad_tpu_torch.cli agent <args>`` and return
+    the process once it has printed its start line."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch.cli", "agent", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=cwd, env=env)
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        if "Agent started" in line:
+            return proc, lines
+    proc.wait(10)
+    raise AssertionError("agent exited before starting:\n" + "".join(lines))
+
+
+def _stop_cli_agent(proc):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert rc == 0
 
 
 @pytest.mark.parametrize("flag", ["-dev", "-client"])
 def test_cli_agent_without_client_fails_naming_part_8(flag, tmp_path,
                                                        capsys):
-    from nomad_tpu_torch.cli import main
+    """``agent -dev`` runs a server with a client whose node goes ready
+    and runs an alloc; ``agent -client -servers`` joins a server agent
+    and its node goes ready there. Both read ``device = "cpu"`` from a
+    config file and stop cleanly on SIGTERM. (The name is the case's
+    from before the client was ported, when both flags failed.)"""
+    import pathlib
 
-    assert main(["agent", flag, "-data-dir", str(tmp_path)]) == 1
-    err = capsys.readouterr().err
-    assert "nomad_tpu_torch.client" in err and "A12 part 8" in err
+    from nomad_tpu_torch.api import NomadClient
+
+    from torch_agent_kit import wait_until
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    conf = tmp_path / "agent.hcl"
+    conf.write_text('device = "cpu"\n')
+    common = ["-config", str(conf), "-data-dir", str(tmp_path / "data"),
+              "-http-port", "0", "-rpc-port", "0"]
+    if flag == "-dev":
+        proc, lines = _cli_agent(["-dev", *common], repo)
+        try:
+            url = next(l.split("HTTP API: ")[1].strip() for l in lines
+                       if "HTTP API: " in l)
+            api = NomadClient(url)
+            assert wait_until(lambda: [
+                n for n in api.nodes.list() if n.status == "ready"], 20)
+            node = api.nodes.list()[0]
+            job = _mock_job(node.datacenter)
+            api.jobs.register(job)
+            assert wait_until(lambda: [
+                a for a in api.jobs.allocations(job.id)
+                if a.client_status == "running"], 20)
+        finally:
+            _stop_cli_agent(proc)
+        return
+    server = start_server_agent(
+        server_config(str(tmp_path / "server")), nodes=0)
+    try:
+        host, port = server.server.addr
+        proc, _ = _cli_agent(
+            ["-client", "-servers", f"{host}:{port}", *common], repo)
+        try:
+            state = server.server.server.state
+            assert wait_until(lambda: [
+                n for n in state.nodes() if n.status == "ready"], 20)
+        finally:
+            _stop_cli_agent(proc)
+    finally:
+        server.shutdown()
 
 
 def test_operator_vet_exits_2_naming_part_9(capsys):

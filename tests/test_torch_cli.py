@@ -1,13 +1,13 @@
 """``tests/test_cli.py`` against the port.
 
-The reference's CLI cases, with its assertions, on the port's server
-agent (``tests/torch_agent_kit.py``: ``device="cpu"``, one mock node
-registered on its server) through ``nomad_tpu_torch.cli``. The reference
-runs them on a dev agent and waits, in ``test_job_run_status_stop``,
-for a client to report both allocs ``running`` (ROADMAP A12 part 8);
-here the case waits for both allocs to be placed, and
-``test_node_commands`` reads the registered node where the reference
-read ``agent.client.node``.
+The reference's cases against the port, with the reference's
+assertions: imports pointed at ``nomad_tpu_torch``, and every
+Server and ClusterServer given its scheduler config
+(``backend="host"``, the reference's default, on ``device="cpu"``)
+and every agent ``device="cpu"``.
+
+CLI tests against a live dev agent (reference: command/*_test.go
+against TestAgent).
 """
 
 import time
@@ -15,10 +15,18 @@ import time
 import pytest
 
 from nomad_tpu_torch import mock
+from nomad_tpu_torch.agent import Agent, AgentConfig
 from nomad_tpu_torch.api import NomadClient
 from nomad_tpu_torch.cli import main
 
-from torch_agent_kit import server_config, start_server_agent, wait_until
+
+def wait_until(fn, timeout_s=20.0, interval=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if fn():
+            return True
+        time.sleep(interval)
+    return False
 
 
 JOBFILE = """
@@ -36,8 +44,12 @@ job "cli-test" {
 
 @pytest.fixture(scope="module")
 def agent(tmp_path_factory):
-    a = start_server_agent(
-        server_config(str(tmp_path_factory.mktemp("cli-agent"))))
+    cfg = AgentConfig.dev()
+    cfg.device = "cpu"
+    cfg.data_dir = str(tmp_path_factory.mktemp("cli-agent"))
+    a = Agent(cfg)
+    a.start()
+    assert wait_until(lambda: a.server.is_leader(), 15)
     yield a
     a.shutdown()
 
@@ -71,7 +83,7 @@ def test_job_run_status_stop(agent, addr, tmp_path, capsys):
 
     assert wait_until(
         lambda: all(
-            a.desired_status == "run"
+            a.client_status == "running"
             for a in NomadClient(addr).jobs.allocations("cli-test")
         )
         and len(NomadClient(addr).jobs.allocations("cli-test")) == 2
@@ -119,7 +131,7 @@ def test_node_commands(agent, addr, capsys):
     assert run_cli(addr, "node", "status") == 0
     out = capsys.readouterr().out
     assert "ready" in out
-    node_id = agent.nodes[0].id
+    node_id = agent.client.node.id
     assert run_cli(addr, "node", "status", node_id[:8]) == 0
     out = capsys.readouterr().out
     assert node_id in out

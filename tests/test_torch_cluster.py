@@ -18,6 +18,13 @@ LeadershipLostError; the replay barrier holds establish_leadership until
 the leader's barrier entry is applied; a ``snapshot_restore`` entry
 rebases the store's indexes, and the ``Operator`` endpoints' snapshot
 save and restore round-trip through the log.
+
+Last, the cases of ``tests/test_cluster.py`` on the port: a job run on
+``Client``s talking to a three-server cluster through ``ClusterRPC``
+(registered through a follower, and rescheduled after a leader kill),
+and the TLS fabric; imports pointed at ``nomad_tpu_torch``, every
+ClusterServer on ``backend="host"``, ``device="cpu"``, the reference's
+assertions.
 """
 
 import functools
@@ -30,7 +37,12 @@ import pytest
 
 from nomad_tpu import codec as jcodec
 
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.client import Client
 from nomad_tpu_torch.codec import from_wire
+from nomad_tpu_torch.rpc import ConnPool
+from nomad_tpu_torch.scheduler.context import SchedulerConfig
+from nomad_tpu_torch.server.cluster import ClusterRPC, ClusterServer
 
 PACKAGES = ("nomad_tpu", "nomad_tpu_torch")
 
@@ -304,3 +316,224 @@ def test_operator_snapshot_round_trip(pkg, tmp_path):
         assert len(peers) == 3
     finally:
         cluster.shutdown()
+
+
+@pytest.fixture
+def cluster3(tmp_path):
+    # Three servers with static peer wiring (serf-style discovery is the
+    # membership layer's job; raft takes a fixed member map).
+    import socket
+
+    ports = []
+    socks = []
+    for _ in range(3):
+        s = socket.create_server(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        socks.append(s)
+    for s in socks:
+        s.close()
+    ids = [f"s{i}" for i in range(3)]
+    addrs = {nid: ("127.0.0.1", ports[i]) for i, nid in enumerate(ids)}
+    servers = {}
+    for nid in ids:
+        servers[nid] = ClusterServer(
+            nid,
+            scheduler_config=SchedulerConfig(backend="host", device="cpu"),
+            peers={p: a for p, a in addrs.items() if p != nid},
+            port=addrs[nid][1],
+            num_workers=1,
+        )
+    for s in servers.values():
+        s.start()
+    clients = []
+
+    def add_client(**kw):
+        c = Client(
+            ClusterRPC([s.addr for s in servers.values()]),
+            data_dir=str(tmp_path / f"c{len(clients)}"),
+            **kw,
+        )
+        c.start()
+        clients.append(c)
+        return c
+
+    yield servers, add_client
+    for c in clients:
+        c.shutdown()
+    for s in servers.values():
+        s.shutdown()
+
+
+def _leader(servers):
+    for s in servers.values():
+        if s.is_leader():
+            return s
+    return None
+
+
+def test_cluster_runs_job_via_follower(cluster3):
+    servers, add_client = cluster3
+    assert wait_until(lambda: _leader(servers) is not None)
+    client = add_client()
+    leader = _leader(servers)
+    follower = next(s for s in servers.values() if s is not leader)
+
+    # Register through a FOLLOWER: must forward to the leader.
+    job = mock.job()
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].config = {}
+    job.datacenters = [client.node.datacenter]
+    pool = ConnPool()
+    try:
+        eval_id = pool.call(follower.addr, "Job.register", {"job": job})
+        assert eval_id
+
+        def running_everywhere():
+            for s in servers.values():
+                allocs = s.server.state.allocs_by_job(job.namespace, job.id)
+                if len(allocs) != 2:
+                    return False
+                if not all(a.client_status == "running" for a in allocs):
+                    return False
+            return True
+
+        assert wait_until(running_everywhere, 20), (
+            "2 allocs should reach running and replicate to every server"
+        )
+    finally:
+        pool.shutdown()
+
+
+def test_leader_failover_reschedules(cluster3):
+    servers, add_client = cluster3
+    assert wait_until(lambda: _leader(servers) is not None)
+    client = add_client()
+    leader = _leader(servers)
+
+    job = mock.job()
+    job.task_groups[0].count = 1
+    job.task_groups[0].tasks[0].config = {}
+    job.datacenters = [client.node.datacenter]
+    pool = ConnPool()
+    try:
+        pool.call(leader.addr, "Job.register", {"job": job})
+        assert wait_until(
+            lambda: any(
+                a.client_status == "running"
+                for a in leader.server.state.allocs_by_job(job.namespace, job.id)
+            ),
+            20,
+        )
+
+        # Kill the leader. A new one must take over and keep serving.
+        dead_id = leader.node_id
+        leader.shutdown()
+        del servers[dead_id]
+        assert wait_until(lambda: _leader(servers) is not None, 20), (
+            "a new leader should be elected"
+        )
+        new_leader = _leader(servers)
+
+        # The surviving cluster accepts and runs a second job (the client
+        # fails over between servers transparently).
+        job2 = mock.job(id="after-failover")
+        job2.task_groups[0].count = 1
+        job2.task_groups[0].tasks[0].config = {}
+        job2.datacenters = [client.node.datacenter]
+        pool.call(new_leader.addr, "Job.register", {"job": job2})
+        assert wait_until(
+            lambda: any(
+                a.client_status == "running"
+                for a in new_leader.server.state.allocs_by_job(
+                    job2.namespace, job2.id
+                )
+            ),
+            25,
+        ), "job registered after failover should run"
+    finally:
+        pool.shutdown()
+
+
+def test_tls_rpc_fabric(tmp_path):
+    """tls { rpc = true }: the whole fabric — raft replication between
+    servers, client registration/heartbeats, and plan placement — runs
+    over mTLS, and a plaintext dialer is rejected at the handshake
+    (reference nomad/rpc.go rpcTLS + tlsutil verify_incoming)."""
+    import subprocess
+
+    from nomad_tpu_torch.rpc.tls import fabric_contexts
+
+    cert = tmp_path / "cert.pem"
+    key = tmp_path / "key.pem"
+    subprocess.run(
+        [
+            "openssl", "req", "-x509", "-newkey", "rsa:2048",
+            "-keyout", str(key), "-out", str(cert), "-days", "1",
+            "-nodes", "-subj", "/CN=fabric",
+        ],
+        check=True,
+        capture_output=True,
+    )
+    # self-signed cert doubles as the CA: full mTLS both directions
+    tls = fabric_contexts(str(cert), str(key), ca_file=str(cert))
+
+    import socket as _socket
+
+    ports = []
+    for _ in range(2):
+        s = _socket.create_server(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    addrs = {f"s{i}": ("127.0.0.1", p) for i, p in enumerate(ports)}
+    servers = {
+        nid: ClusterServer(
+            nid,
+            scheduler_config=SchedulerConfig(backend="host", device="cpu"),
+            peers={p: a for p, a in addrs.items() if p != nid},
+            port=addrs[nid][1],
+            num_workers=1,
+            tls=tls,
+        )
+        for nid in addrs
+    }
+    for s in servers.values():
+        s.start()
+    client = None
+    try:
+        assert wait_until(
+            lambda: any(s.is_leader() for s in servers.values())
+        )
+        client = Client(
+            ClusterRPC(
+                [s.addr for s in servers.values()], tls_context=tls[1]
+            ),
+            data_dir=str(tmp_path / "c0"),
+            tls=tls,
+        )
+        client.start()
+        assert client.wait_registered(15)
+        leader = next(s for s in servers.values() if s.is_leader())
+        job = mock.job(id="tls-fabric")
+        job.task_groups[0].count = 1
+        job.task_groups[0].tasks[0].driver = "mock"
+        job.task_groups[0].tasks[0].config = {}
+        leader.server.job_register(job)
+        assert wait_until(
+            lambda: any(
+                a.client_status == "running"
+                for a in leader.server.state.allocs_by_job(
+                    "default", "tls-fabric"
+                )
+            ),
+            timeout_s=15,
+        )
+        # a non-TLS dialer must not get through the fabric
+        with pytest.raises((ConnectionError, OSError, TimeoutError)):
+            ConnPool(connect_timeout_s=2.0).call(
+                servers["s0"].rpc.addr, "Status.ping", {}, timeout_s=3.0
+            )
+    finally:
+        if client is not None:
+            client.shutdown()
+        for s in servers.values():
+            s.shutdown()

@@ -213,9 +213,8 @@ class TestOperatorSnapshot:
         from nomad_tpu_torch.agent import Agent, AgentConfig
         from nomad_tpu_torch.api import NomadClient
 
-        # the reference's dev agent, without its client (ROADMAP A12
-        # part 8): an in-memory server agent on the CPU
-        cfg = AgentConfig(server_enabled=True, dev_mode=True, device="cpu")
+        cfg = AgentConfig.dev()
+        cfg.device = "cpu"
         cfg.data_dir = str(tmp_path / "agent")
         agent = Agent(cfg)
         agent.start()

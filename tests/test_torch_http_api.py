@@ -1,15 +1,15 @@
 """``tests/test_http_api.py`` against the port.
 
-The reference's HTTP API and SDK cases, with its assertions, on the
-port's server agent (``tests/torch_agent_kit.py``: ``device="cpu"``, one
-mock node registered on its server). The reference runs them on a dev
-agent; where a case read ``agent.client.node`` it reads the registered
-node.
+The reference's cases against the port, with the reference's
+assertions: imports pointed at ``nomad_tpu_torch``, and every
+Server and ClusterServer given its scheduler config
+(``backend="host"``, the reference's default, on ``device="cpu"``)
+and every agent ``device="cpu"``.
 
-Waiting for the client agent (ROADMAP A12 part 8):
-``test_job_runs_and_allocs_visible`` waits for an alloc a client reports
-``running``. ``test_job_allocs_visible`` holds the rest of it here: the
-placed allocs, their eval and the job summary read back over HTTP.
+HTTP API + SDK tests against a dev-mode agent.
+
+Reference analog: command/agent/testagent.go TestAgent used by endpoint
+tests; api/* SDK tests against it.
 """
 
 import threading
@@ -18,16 +18,28 @@ import time
 import pytest
 
 from nomad_tpu_torch import mock
+from nomad_tpu_torch.agent import Agent, AgentConfig
 from nomad_tpu_torch.api import APIError, NomadClient
 from nomad_tpu_torch.api.client import event_stream
 
-from torch_agent_kit import server_config, start_server_agent, wait_until
+
+def wait_until(fn, timeout_s=20.0, interval=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if fn():
+            return True
+        time.sleep(interval)
+    return False
 
 
 @pytest.fixture(scope="module")
 def agent(tmp_path_factory):
-    a = start_server_agent(
-        server_config(str(tmp_path_factory.mktemp("server-agent"))))
+    cfg = AgentConfig.dev()
+    cfg.device = "cpu"
+    cfg.data_dir = str(tmp_path_factory.mktemp("dev-agent"))
+    a = Agent(cfg)
+    a.start()
+    assert wait_until(lambda: a.server.is_leader(), 15)
     yield a
     a.shutdown()
 
@@ -42,7 +54,7 @@ def _runnable_job(agent, **kw):
     job = mock.job(**kw)
     job.task_groups[0].count = 1
     job.task_groups[0].tasks[0].config = {}
-    job.datacenters = [agent.nodes[0].datacenter]
+    job.datacenters = [agent.client.node.datacenter]
     return job
 
 
@@ -56,6 +68,23 @@ class TestHTTPJobs:
         assert any(j.id == job.id for j in api.jobs.list())
         assert any(j.id == job.id for j in api.jobs.list(prefix=job.id[:8]))
 
+    def test_job_runs_and_allocs_visible(self, agent, api):
+        job = _runnable_job(agent)
+        api.jobs.register(job)
+        assert wait_until(
+            lambda: any(
+                a.client_status == "running"
+                for a in api.jobs.allocations(job.id)
+            )
+        )
+        allocs = api.jobs.allocations(job.id)
+        alloc = api.allocations.get(allocs[0].id)
+        assert alloc.job_id == job.id
+        evs = api.jobs.evaluations(job.id)
+        assert evs and evs[0].job_id == job.id
+        summary = api.jobs.summary(job.id)
+        assert summary.job_id == job.id
+
     def test_job_allocs_visible(self, agent, api):
         job = _runnable_job(agent)
         api.jobs.register(job)
@@ -63,7 +92,7 @@ class TestHTTPJobs:
         allocs = api.jobs.allocations(job.id)
         alloc = api.allocations.get(allocs[0].id)
         assert alloc.job_id == job.id
-        assert alloc.node_id == agent.nodes[0].id
+        assert alloc.node_id == agent.client.node.id
         assert alloc.desired_status == "run"
         evs = api.jobs.evaluations(job.id)
         assert evs and evs[0].job_id == job.id
@@ -96,7 +125,7 @@ class TestHTTPNodes:
         nodes = api.nodes.list()
         assert len(nodes) == 1
         node = api.nodes.get(nodes[0].id)
-        assert node.id == agent.nodes[0].id
+        assert node.id == agent.client.node.id
         api.nodes.eligibility(node.id, False)
         assert wait_until(
             lambda: api.nodes.get(node.id).scheduling_eligibility

@@ -9,7 +9,7 @@
 * A fresh interpreter importing the tenancy and cluster tables' modules
   (ACL, the event stream, the volume watcher, the watch hub, search), or
   the operator's front door (the agent, the API, the CLI, the jobspec
-  parser), or running ``python -m nomad_tpu_torch.cli version``, loads
+  parser), or the client with its drivers and plugins, or running ``python -m nomad_tpu_torch.cli version``, loads
   neither torch nor jax nor nomad_tpu.
 """
 
@@ -59,6 +59,13 @@ def test_every_module_is_scanned():
     for rel in ("jobspec/parse.py", "acl/enforce.py", "api/client.py",
                 "agent/agent.py", "agent/http.py", "agent/debug.py",
                 "agent/ui.py", "cli/main.py", "cli/__main__.py"):
+        assert PKG / rel in MODULES, rel
+    for rel in ("client/client.py", "client/taskrunner.py",
+                "client/allocrunner.py", "client/fingerprint/__init__.py",
+                "client/devicemanager.py", "drivers/exec.py",
+                "drivers/executor.py", "drivers/docker.py",
+                "plugins/csi.py", "plugins/launcher.py",
+                "devices/plugin.py"):
         assert PKG / rel in MODULES, rel
 
 
@@ -118,6 +125,26 @@ def test_front_door_modules_load_no_torch_jax_or_nomad_tpu():
         "import nomad_tpu_torch.cli\n"
         "import nomad_tpu_torch.jobspec\n"
         "import nomad_tpu_torch.acl.enforce\n"
+        + _BAD_MODULES + "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        check=True, timeout=120, cwd=str(PKG.parent),
+    ).stdout.strip()
+    assert out == "[]"
+
+
+def test_client_modules_load_no_torch_jax_or_nomad_tpu():
+    code = (
+        "import sys\n"
+        "import nomad_tpu_torch.client\n"
+        "import nomad_tpu_torch.client.endpoints\n"
+        "import nomad_tpu_torch.client.devicemanager\n"
+        "import nomad_tpu_torch.client.csimanager\n"
+        "import nomad_tpu_torch.drivers\n"
+        "import nomad_tpu_torch.drivers.plugin\n"
+        "import nomad_tpu_torch.plugins\n"
+        "import nomad_tpu_torch.devices\n"
         + _BAD_MODULES + "print(bad)\n"
     )
     out = subprocess.run(

@@ -1,12 +1,11 @@
 """Gossip membership + dynamic raft peer reconciliation tests.
 
-The cases of ``tests/test_membership.py`` that need no client agent,
-against the port: imports changed only, the reference's assertions
-unchanged, and every ClusterServer states its scheduler config (the
-reference's default, ``backend="host"``, on ``device="cpu"``). Left out:
-``TestGossipBootstrap.test_bootstrap_expect_cluster``, which runs a job
-on a ``Client`` through ``ClusterRPC``; it comes with ``client/`` (ROADMAP
-A12 part 8).
+The cases of ``tests/test_membership.py`` against the port: imports
+changed only, the reference's assertions unchanged, and every
+ClusterServer states its scheduler config (the reference's default,
+``backend="host"``, on ``device="cpu"``).
+``TestGossipBootstrap.test_bootstrap_expect_cluster`` runs a job on the
+port's ``Client`` through ``ClusterRPC``.
 
 Reference analog: serf membership events driving leader reconcileMember
 (nomad/serf.go, nomad/leader.go:1121).
@@ -17,7 +16,7 @@ import time
 import pytest
 
 from nomad_tpu_torch import mock
-from nomad_tpu_torch.rpc import RPCServer
+from nomad_tpu_torch.rpc import ConnPool, RPCServer
 from nomad_tpu_torch.scheduler.context import SchedulerConfig
 from nomad_tpu_torch.server.cluster import ClusterServer
 from nomad_tpu_torch.server.membership import ALIVE, FAILED, Membership
@@ -174,4 +173,56 @@ class TestGossipBootstrap:
             if extra:
                 extra.shutdown()
             for s in servers.values():
+                s.shutdown()
+
+    def test_bootstrap_expect_cluster(self, tmp_path):
+        """Three blank servers discover each other by gossip and bootstrap
+        raft once bootstrap_expect is reached; a job then runs."""
+        from nomad_tpu_torch.client import Client
+        from nomad_tpu_torch.server.cluster import ClusterRPC
+
+        servers = [
+            ClusterServer(f"g{i}", scheduler_config=cpu_config(),
+                          bootstrap_expect=3, num_workers=1)
+            for i in range(3)
+        ]
+        client = None
+        try:
+            for s in servers:
+                s.start()
+            for s in servers[1:]:
+                s.join([servers[0].addr])
+            leader = lambda: next(
+                (s for s in servers if s.is_leader()), None
+            )
+            assert wait_until(lambda: leader() is not None, 20), (
+                "gossip-bootstrapped cluster should elect a leader"
+            )
+            client = Client(
+                ClusterRPC([s.addr for s in servers]),
+                data_dir=str(tmp_path / "c0"),
+            )
+            client.start()
+            job = mock.job()
+            job.task_groups[0].count = 1
+            job.task_groups[0].tasks[0].config = {}
+            job.datacenters = [client.node.datacenter]
+            pool = ConnPool()
+            try:
+                pool.call(leader().addr, "Job.register", {"job": job})
+                assert wait_until(
+                    lambda: any(
+                        a.client_status == "running"
+                        for a in leader().server.state.allocs_by_job(
+                            job.namespace, job.id
+                        )
+                    ),
+                    20,
+                )
+            finally:
+                pool.shutdown()
+        finally:
+            if client:
+                client.shutdown()
+            for s in servers:
                 s.shutdown()

@@ -1,14 +1,15 @@
 """The secrets store and task tokens against the port.
 
-The cases of ``tests/test_secrets.py`` that need no client (its
-VaultClient renewal loop, template and Vault task e2e cases wait for
-``client/``), with imports pointed at ``nomad_tpu_torch`` and the
-Server's scheduler config written out (``backend="host"``,
+The cases of ``tests/test_secrets.py`` (its VaultClient renewal loop,
+template and Vault task e2e cases on the port's ``client/``), with
+imports pointed at ``nomad_tpu_torch`` and the Server's scheduler
+config written out (``backend="host"``,
 ``device="cpu"``). The assertions are the reference's.
 Reference intent: nomad/vault.go (server-side token derivation),
 rebuilt as a cluster-native subsystem.
 """
 
+import os
 import time
 
 import pytest
@@ -16,7 +17,7 @@ import pytest
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.scheduler.context import SchedulerConfig
 from nomad_tpu_torch.server import Server
-from nomad_tpu_torch.structs.structs import SecretEntry
+from nomad_tpu_torch.structs.structs import SecretEntry, Template
 
 
 def wait_until(fn, timeout_s=10.0, interval=0.05):
@@ -138,6 +139,41 @@ class TestTokenLifecycle:
         assert n == 1
         assert server.state.acl_token_by_secret(out["secret_id"]) is None
 
+    def test_vaultclient_renewal_loop(self, server):
+        """The client-side heap loop renews at half TTL."""
+        from nomad_tpu_torch.client.vaultclient import VaultClient
+
+        alloc = self._running_alloc(server)
+        server.DERIVED_TOKEN_TTL_S = 0.4  # tiny TTL to see renewals
+
+        class RPC:
+            def derive_token(self, a, t):
+                return server.derive_task_token(a, t)
+
+            def renew_token(self, acc):
+                return server.renew_task_token(acc)
+
+            def revoke_token(self, acc):
+                server.acl_token_delete([acc])
+
+        vc = VaultClient(RPC())
+        vc.start()
+        try:
+            out = vc.derive_token(alloc.id, "web")
+            acc = out["accessor_id"]
+            exp0 = server.state.acl_token_by_accessor(acc).expiration_time_ns
+            assert wait_until(
+                lambda: server.state.acl_token_by_accessor(
+                    acc
+                ).expiration_time_ns > exp0,
+                5,
+            ), "renewal loop should extend the TTL"
+            vc.stop_renew(acc, revoke=True)
+            assert server.state.acl_token_by_accessor(acc) is None
+            assert vc.tracked() == 0
+        finally:
+            vc.stop()
+
 
 def test_vault_policy_allowlist(server):
     """Operator allowlist rejects escalation via jobspec vault policies
@@ -182,3 +218,95 @@ def test_vault_allowlist_at_admission_and_mint():
         assert s.renew_task_token(out["accessor_id"]) == out["ttl_s"]
     finally:
         s.shutdown()
+
+
+def test_template_secret_function(tmp_path):
+    entry = SecretEntry(path="db/creds", items={"pass": "s3cr3t", "user": "app"})
+
+    tmpl = Template(
+        embedded_tmpl='password={{ secret "db/creds:pass" }}',
+        dest_path="local/db.conf",
+    )
+    from nomad_tpu_torch.client.template import compute_template
+
+    _, content = compute_template(
+        tmpl, str(tmp_path), {}, secret_fn=lambda p: entry if p == "db/creds" else None
+    )
+    assert content == "password=s3cr3t"
+    # whole-document form
+    tmpl2 = Template(
+        embedded_tmpl='{{ secret "db/creds" }}', dest_path="local/all.env"
+    )
+    _, content = compute_template(
+        tmpl2, str(tmp_path), {}, secret_fn=lambda p: entry
+    )
+    assert content == "pass=s3cr3t\nuser=app"
+    # missing secret renders empty, not an error
+    _, content = compute_template(
+        tmpl, str(tmp_path), {}, secret_fn=lambda p: None
+    )
+    assert content == "password="
+
+
+def test_vault_task_e2e(tmp_path, monkeypatch):
+    """Full stack: a task with a vault stanza gets a token file in its
+    secrets dir, VAULT_TOKEN in env, templates can read the store, and
+    the token is revoked when the task stops."""
+    from nomad_tpu_torch.client import Client, ServerRPC
+
+    server = Server(num_workers=2, scheduler_config=SchedulerConfig(backend="host", device="cpu"))
+    server.establish_leadership()
+    client = None
+    try:
+        server.secret_upsert(
+            SecretEntry(path="app/cfg", items={"greeting": "hello"})
+        )
+        client = Client(ServerRPC(server), data_dir=str(tmp_path / "c0"))
+        client.start()
+        assert client.wait_registered(10)
+
+        job = mock.job(id="vault-e2e")
+        job.datacenters = [client.node.datacenter]
+        tg = job.task_groups[0]
+        tg.count = 1
+        task = tg.tasks[0]
+        task.driver = "mock"
+        task.config = {}
+        task.vault = {"policies": ["app-read"], "env": True}
+        task.templates = [
+            Template(
+                embedded_tmpl='greet={{ secret "app/cfg:greeting" }}',
+                dest_path="local/app.conf",
+                change_mode="noop",
+            )
+        ]
+        server.job_register(job)
+
+        def running():
+            return [
+                a
+                for a in server.state.allocs_by_job("default", "vault-e2e")
+                if a.client_status == "running"
+            ]
+
+        assert wait_until(lambda: running(), 15)
+        alloc = running()[0]
+        runner = client.alloc_runners[alloc.id]
+        task_dir = os.path.join(runner.alloc_dir, task.name)
+        token_file = os.path.join(task_dir, "secrets", "vault_token")
+        assert wait_until(lambda: os.path.exists(token_file), 5)
+        secret_id = open(token_file).read()
+        token = server.state.acl_token_by_secret(secret_id)
+        assert token is not None and token.policies == ["app-read"]
+        rendered = os.path.join(task_dir, "local", "app.conf")
+        assert wait_until(lambda: os.path.exists(rendered), 5)
+        assert open(rendered).read() == "greet=hello"
+        # stop the job: token revoked
+        server.job_deregister("default", "vault-e2e", purge=False)
+        assert wait_until(
+            lambda: server.state.acl_token_by_secret(secret_id) is None, 15
+        ), "derived token must be revoked when the task dies"
+    finally:
+        if client is not None:
+            client.shutdown()
+        server.shutdown()

@@ -1,16 +1,13 @@
 """``tests/test_ui.py`` against the port.
 
-The reference's web UI cases, with its assertions, on the port's server
-agent (``device="cpu"``). Its ``full_agent`` is a dev agent; here it is a
-server agent with one mock node registered on its server
-(``tests/torch_agent_kit.py``), and the cases read that node where the
-reference read ``agent.client.node``.
+The reference's cases against the port, with the reference's
+assertions: imports pointed at ``nomad_tpu_torch``, and every
+Server and ClusterServer given its scheduler config
+(``backend="host"``, the reference's default, on ``device="cpu"``)
+and every agent ``device="cpu"``.
 
-Waiting for the client agent (ROADMAP A12 part 8):
-``test_browser_exec_into_live_alloc`` execs a shell into an alloc a
-client runs. ``test_jobs_parse_and_submit_roundtrip`` waits here for
-its two allocs to be placed, where the reference waits for a client to
-report them ``running``.
+Web UI serving tests (reference: ui/ served by command/agent/http.go
+with / redirecting to /ui/).
 """
 
 import json
@@ -21,18 +18,16 @@ import pytest
 from nomad_tpu_torch import mock
 from nomad_tpu_torch.agent import Agent, AgentConfig
 
-from torch_agent_kit import server_config, start_server_agent
-
 
 @pytest.fixture
 def agent(tmp_path):
     cfg = AgentConfig()
+    cfg.device = "cpu"
     cfg.server_enabled = True
     cfg.client_enabled = False
     cfg.dev_mode = True
     cfg.http_port = 0
     cfg.data_dir = str(tmp_path)
-    cfg.device = "cpu"
     a = Agent(cfg)
     a.start()
     yield a
@@ -112,9 +107,86 @@ def test_ui_api_contract(agent):
 # ---------------------------------------------------------------------------
 
 
+class _WSClient:
+    """Minimal RFC6455 client for the exec bridge test."""
+
+    def __init__(self, host, port, path):
+        import base64
+        import os
+        import socket
+
+        self.sock = socket.create_connection((host, port), timeout=10)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+            f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+            f"Sec-WebSocket-Key: {key}\r\n"
+            f"Sec-WebSocket-Version: 13\r\n\r\n".encode()
+        )
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = self.sock.recv(4096)
+            if not chunk:
+                raise ConnectionError("handshake EOF")
+            resp += chunk
+        assert b"101" in resp.split(b"\r\n", 1)[0], resp
+        self.buf = resp.split(b"\r\n\r\n", 1)[1]
+
+    def _read(self, n):
+        while len(self.buf) < n:
+            chunk = self.sock.recv(4096)
+            if not chunk:
+                raise ConnectionError("ws EOF")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def send_json(self, obj):
+        import json as _json
+        import os
+        import struct
+
+        payload = _json.dumps(obj).encode()
+        mask = os.urandom(4)
+        head = bytearray([0x81])
+        n = len(payload)
+        if n < 126:
+            head.append(0x80 | n)
+        else:
+            head.append(0x80 | 126)
+            head += struct.pack(">H", n)
+        masked = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+        self.sock.sendall(bytes(head) + mask + masked)
+
+    def recv_json(self, timeout_s=10):
+        import json as _json
+        import struct
+
+        self.sock.settimeout(timeout_s)
+        hdr = self._read(2)
+        opcode = hdr[0] & 0x0F
+        n = hdr[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", self._read(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._read(8))[0]
+        data = self._read(n) if n else b""
+        if opcode == 0x8:
+            return None
+        return _json.loads(data) if data else {}
+
+    def close(self):
+        self.sock.close()
+
+
 @pytest.fixture
 def full_agent(tmp_path):
-    a = start_server_agent(server_config(str(tmp_path / "agent")))
+    cfg = AgentConfig.dev()
+    cfg.device = "cpu"
+    cfg.data_dir = str(tmp_path / "agent")
+    a = Agent(cfg)
+    a.start()
+    assert a.client.wait_registered(15)
     yield a
     a.shutdown()
 
@@ -128,6 +200,60 @@ def wait_until(fn, timeout_s=15.0, interval=0.05):
             return True
         time.sleep(interval)
     return False
+
+
+def test_browser_exec_into_live_alloc(full_agent):
+    """The VERDICT item-9 done-criterion: exec a shell into a live alloc
+    from the browser — here the browser half is a raw websocket client
+    speaking the UI terminal's exact frame protocol."""
+    import base64
+
+    a = full_agent
+    srv = a.server.server
+    job = mock.job(id="ws-exec")
+    tg = job.task_groups[0]
+    tg.count = 1
+    t = tg.tasks[0]
+    t.driver = "rawexec"
+    t.config = {"command": "/bin/sh", "args": ["-c", "sleep 300"]}
+    srv.job_register(job)
+
+    def running():
+        return [
+            x
+            for x in srv.state.allocs_by_job("default", "ws-exec")
+            if x.client_status == "running"
+        ]
+
+    assert wait_until(lambda: running(), 20)
+    alloc = running()[0]
+    ws = _WSClient(
+        "127.0.0.1",
+        a.http_addr[1],
+        f"/v1/client/allocation/{alloc.id}/exec"
+        f"?command=/bin/sh&task=web",
+    )
+    try:
+        ws.send_json(
+            {
+                "stdin": base64.b64encode(
+                    b"echo exec-roundtrip-$((40+2))\n"
+                ).decode()
+            }
+        )
+        got = b""
+        for _ in range(40):
+            msg = ws.recv_json(timeout_s=10)
+            if msg is None:
+                break
+            if msg.get("stdout"):
+                got += base64.b64decode(msg["stdout"])
+            if b"exec-roundtrip-42" in got:
+                break
+        assert b"exec-roundtrip-42" in got, got
+    finally:
+        ws.close()
+    srv.job_deregister("default", "ws-exec", purge=True)
 
 
 def test_jobs_parse_and_submit_roundtrip(full_agent):
@@ -174,12 +300,12 @@ job "ui-submitted" {
             [
                 x
                 for x in srv.state.allocs_by_job("default", "ui-submitted")
-                if x.desired_status == "run"
+                if x.client_status == "running"
             ]
         )
         == 2,
         20,
-    ), "UI-submitted job must be placed"
+    ), "UI-submitted job must run"
     # bad HCL is a clean 400
     import urllib.error
 
@@ -208,7 +334,7 @@ def test_ui_deployment_and_node_action_contracts(full_agent):
 
     deps = req("/v1/deployments")
     assert isinstance(deps, list)
-    node_id = a.nodes[0].id
+    node_id = a.client.node.id
     # drain on with the PLAIN reference shape, then off
     req(f"/v1/node/{node_id}/drain", {"DrainSpec": {"Deadline": 3600e9}},
         "PUT")

@@ -1,11 +1,12 @@
-"""Server agents of the port for the CPU tests.
+"""Agents of the port for the CPU tests (``device="cpu"``: the kernels'
+plain twins).
 
-The reference's agent tests start a dev agent, a server with a client in
-one process. The port's client comes with ROADMAP A12 part 8, so its
-tests start a server agent (``device="cpu"``: the kernels' plain
-twins) and register mock nodes on its server, as an operator's nodes
-register over the fabric. No client heartbeats: the heartbeat wheel's
-TTL floor is an hour, so the registered nodes stay ready.
+``start_dev_agent`` starts what the reference's agent tests start: a dev
+agent, a server with a client in one process, its client's node
+registered and ready. ``start_server_agent`` starts a server agent and
+registers mock nodes on its server, as an operator's nodes register over
+the fabric. No client heartbeats them: the heartbeat wheel's TTL floor
+is an hour, so the registered nodes stay ready.
 """
 
 import time
@@ -31,6 +32,30 @@ def server_config(data_dir: str, **kw) -> AgentConfig:
     cfg = AgentConfig(server_enabled=True, dev_mode=True, device="cpu",
                       data_dir=data_dir, **kw)
     return cfg
+
+
+def dev_config(data_dir: str, **kw) -> AgentConfig:
+    """A dev agent's config (server and client, in-memory raft), its
+    schedulers on the CPU."""
+    cfg = AgentConfig.dev()
+    cfg.device = "cpu"
+    cfg.data_dir = data_dir
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def start_dev_agent(cfg: AgentConfig) -> Agent:
+    """Start the agent and wait for its client's node to be ready on its
+    server; the node is `agent.nodes[0]`."""
+    agent = Agent(cfg)
+    agent.start()
+    assert agent.client.wait_registered(15)
+    state = agent.server.server.state
+    assert wait_until(lambda: getattr(
+        state.node_by_id(agent.client.node.id), "status", "") == "ready", 15)
+    agent.nodes = [agent.client.node]
+    return agent
 
 
 def start_server_agent(cfg: AgentConfig, nodes: int = 1) -> Agent:
