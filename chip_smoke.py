@@ -139,6 +139,19 @@ Phases (one JSON line each, with its seconds):
                 bench.py's c2m_pool shapes (2,000 nodes, 6 batches of 8
                 jobs x 100) with 1 and 2 members, in the order 1, 2, 2,
                 1: evals/s and the ratio, recorded, not gated;
+  7b. codec  — the wire codec (nomad_tpu's native/fastpack.c pack,
+                register_class and wire_rows, ported, and an unpack of
+                the port's own): one solver-pool reply at c2m's width
+                (CODEC: RemoteSolver.solve of 8 of c2m's jobs on c2m's
+                10,000 nodes in one batch, small_batch_threshold 0; K1
+                launched, its first call held against its twin), packed
+                and unpacked through the C fastpack, timed: its bytes and
+                the encode and decode seconds. The C bytes must equal
+                the Python writer's and pack again to themselves after
+                the round trip, one PlacementBatch's bytes must decode to
+                one wire form through C and the Python reader, and every
+                fastpack entry point must be live (a missing compiler or
+                extension fails the run);
   8. lifecycle — the job lifecycle (nomad_tpu's server/job_plan.py,
                 deployment_watcher.py, drainer.py, periodic.py, ported)
                 through the Server's own endpoints on c2m's 10,000 nodes,
@@ -474,6 +487,7 @@ server phase, `pool_launches`, its count in pool.c2m, and
 `tenancy_launches`, its count in the tenancy phase,
 `cluster_launches`, its count in the cluster phase,
 `agent_launches`, its count in the agent phase,
+`codec_launches`, its count in the codec phase,
 `client_launches`, its count in the client phase, and
 `fleet_launches`, `soak_launches` and `scenarios_launches`, its counts
 in those phases; K1 and K2 `pool`,
@@ -4164,9 +4178,12 @@ def cluster_scenario(device: str, cfg: dict, on_step) -> dict:
              terms={nid: s.raft.current_term
                     for nid, s in sorted(cluster.servers.items())})
 
-        # the checks over the whole run
+        # the checks over the whole run; an election nobody asked for
+        # (a collector pass stops every server's heartbeats) is waited
+        # out, as log_entries waits it out
         cluster.check_invariants()
-        lead = cluster.leader()
+        lead = cluster.leader() or cluster.wait_for_stable_leader(60)
+        check(lead is not None, "cluster: no leader after the restart")
         check_server_state(lead.server, n_jobs * count)
         c = metrics.snapshot()["counters"]
         check(c.get("nomad.worker.device_failover", 0) == 0,
@@ -6702,6 +6719,102 @@ def replay_pool(prec: dict, n_members: int) -> dict:
     return held
 
 
+# ---------------------------------------------------------------------------
+# the wire codec: one solver-pool reply at c2m's width through the C
+# fastpack (native/fastpack.c pack and unpack) and the Python twins
+# ---------------------------------------------------------------------------
+
+# one pool member's reply: RemoteSolver.solve of one batch of 8 of c2m's
+# jobs on c2m's 10,000 nodes
+CODEC = {"nodes": 10000, "jobs": 8, "count": 1000}
+
+
+def codec_phase(device: str, cfg: dict = CODEC) -> dict:
+    """One solver-pool reply as a member sends it: the port's Server
+    (not led) takes cfg["jobs"] of c2m's jobs through job_register, and a
+    RemoteSolver on the leader's store solves their evals in one batch,
+    every batch on the card (small_batch_threshold 0), launch counters
+    zeroed just before the solve and read just after. The reply goes
+    through codec.pack and unpack (C), timed; the C bytes must equal the
+    Python writer's, the bytes must pack again to themselves after the
+    round trip, one PlacementBatch's bytes must decode to the same wire
+    form through C and the Python reader, and every fastpack entry point
+    must be live. Returns the numbers, the launches and K1's first call
+    held against its twin."""
+    from nomad_tpu_torch import codec, native
+    from nomad_tpu_torch.scheduler.gpu.remote_solve import RemoteSolver
+    from nomad_tpu_torch.structs.placement_batch import PlacementBatch
+
+    check(codec.warm_native(),
+          f"the C fastpack is not live: {native.last_error}")
+    fp = codec.native_module()
+    missing = [n for n in native.FASTPACK_ENTRY_POINTS
+               if not callable(getattr(fp, n, None))]
+    check(not missing, f"fastpack entry points missing: {missing}")
+    srv, _ = start_server(device, c2m_nodes(cfg["nodes"]), leader=False,
+                          small_batch_threshold=0)
+    rec = Recorder(solver_mod, "solve_placement_compact")
+    try:
+        for j in range(cfg["jobs"]):
+            srv.job_register(make_job(f"codec-{j}", cfg["count"]))
+        evals = []
+        while len(evals) < cfg["jobs"]:
+            ev, _tok = srv.eval_broker.dequeue(["service"], timeout_s=1)
+            check(ev is not None, "the broker ran dry")
+            evals.append(ev)
+        member = RemoteSolver(types.SimpleNamespace(state=srv.state),
+                              card_solve_config(device), node_id="codec")
+        tk.reset_launch_counts()
+        reply = member.solve(evals, srv.state.latest_index())
+        launches = launch_counts()
+    finally:
+        rec.restore()
+        srv.shutdown()
+    check(launches["solve_placement_compact"] > 0,
+          "K1 was not launched for the pool reply")
+    check(rec.first is not None, "no codec-path K1 call recorded")
+    held = hold_k1(*rec.first)
+    check(held["max_abs_err"] == 0, "the codec path's K1 call differs")
+    held.update(bound(held.pop("nbytes"), held.pop("ops")))
+    batches = [b for p in reply["plans"].values() for b in p.alloc_batches]
+    placed = sum(len(b) for b in batches)
+    check(placed == cfg["jobs"] * cfg["count"],
+          f"the reply places {placed}, want {cfg['jobs'] * cfg['count']}")
+
+    t0 = time.perf_counter()
+    raw = codec.pack(reply)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = codec.unpack(raw)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_raw = codec._pack_py(codec.to_wire(reply, _elide=True))
+    py_encode_s = time.perf_counter() - t0
+    check(raw == py_raw, "the C pack's bytes differ from the Python "
+          "writer's")
+    check(codec.pack(back) == raw,
+          "the reply does not pack to the same bytes after unpack")
+    one = codec.pack(batches[0])
+    t0 = time.perf_counter()
+    c_one = fp.unpack(one)
+    c_slice_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_one = codec._unpack_py(one)
+    py_slice_s = time.perf_counter() - t0
+    check(isinstance(c_one, PlacementBatch)
+          and codec.to_wire(c_one) == codec.to_wire(py_one)
+          == codec.to_wire(batches[0]),
+          "the C unpack and the Python reader disagree on a "
+          "PlacementBatch")
+    return {"launches": launches, "k1": held, "numbers": {
+        "reply_bytes": len(raw), "encode_s": encode_s,
+        "decode_s": decode_s, "py_encode_s": py_encode_s,
+        "batches": len(batches), "allocs": placed,
+        "slice_bytes": len(one), "slice_decode_s": c_slice_s,
+        "slice_py_decode_s": py_slice_s,
+        "entry_points": list(native.FASTPACK_ENTRY_POINTS)}}
+
+
 def replay(rec: dict, launches: dict, drain_rec, dev, seed: int) -> list:
     """Each kernel's first main-path call against its twin, then timed;
     K2's non-donated mode also on the drain path's first such call and on
@@ -6986,7 +7099,12 @@ def entry(name, launches, err, ms, plain_ms, nbytes_, ops, lib_ms, **extra):
 # 8 or more placements go to the card (small_batch_threshold): with
 # every batch on it (threshold 0) the reconnect storm did not settle in
 # 240 s in 3 of 7 runs on an H100, its heartbeats stalled 8-16 s behind
-# the 10 s TTL (PERF.md, open questions). The fleet's own 2-alloc
+# the 10 s TTL (PERF.md, open questions). At 8 it still failed so in
+# about a third of the runs while the fleet's 8 driver threads made
+# every register and heartbeat call themselves: the reconnect's 4,000
+# raft-bound calls held all 8 past the TTL's slack. The calls now run on
+# testing/fleet.py's RPC_WORKERS pool, and the server commits
+# concurrent recoveries together (Server.ready_batcher). The fleet's own 2-alloc
 # traffic then mostly takes the host route, so c2m's job (c2m_job
 # allocs) is registered once the fleet is in, and its storms'
 # re-placements, go to the card.
@@ -7815,6 +7933,14 @@ def main() -> int:
     phase("pool.scaling", t0, **pool_scaling("cuda"))
     phase("pool", t_pool, launches=pool_launches)
 
+    # 7b. the wire codec: one pool reply of 8 of c2m's jobs solved on the
+    #    card (launch counters zeroed just before the solve and read
+    #    just after) through the C fastpack and the Python twins
+    t0 = time.perf_counter()
+    codec_res = codec_phase("cuda")
+    codec_launches = codec_res["launches"]
+    phase("codec", t0, launches=codec_launches, **codec_res["numbers"])
+
     # 8. the job lifecycle at c2m's width through the Server's endpoints:
     #    two plans, four canary rollouts promoted and rolled, an
     #    auto-revert, a 10% drain, a periodic and a dispatched child;
@@ -7908,6 +8034,14 @@ def main() -> int:
     phase("cluster", t_cl, launches=cluster_launches,
           log_entries=cres["log_entries"], snapshot=cres["snapshot"],
           shutdown_s=cres["shutdown_s"])
+    # the AppendEntries requests of each step, msgpack frames with the
+    # packed entries as bins
+    ae = {name: st["append_entries"] for name, st in cres["steps"].items()}
+    print(json.dumps({
+        "phase": "cluster.append_entries", "by_step": ae,
+        "calls": sum(a["calls"] for a in ae.values()),
+        "sent_bytes": sum(a["sent_bytes"] for a in ae.values()),
+        "fastpack_live": cres["fastpack_live"]}), flush=True)
     del cres
 
     # 11. the operator's front door at c2m's width: one server agent,
@@ -8051,6 +8185,11 @@ def main() -> int:
     kernels[names.index("scatter_rows")]["agent_launches_copy"] = \
         agent_launches["scatter_rows_copy"]
     del arec
+    for k in kernels:
+        k["codec_launches"] = codec_launches[k["name"]]
+    kernels[names.index("solve_placement_compact")]["codec"] = \
+        codec_res["k1"]
+    del codec_res
     cl_held = replay_server({k: r for k, r in clrec.items()
                              if client_launches[k] > 0}, client_launches)
     check("solve_placement_compact" in cl_held,

@@ -128,13 +128,6 @@ def cmd_agent(args) -> int:
     if args.tpu_scheduler:
         cfg.use_tpu_batch_worker = True
 
-    agent = Agent(cfg)
-    agent.start()
-    if agent.http_addr:
-        print(f"==> HTTP API: http://{agent.http_addr[0]}:{agent.http_addr[1]}")
-    if agent.server:
-        print(f"==> RPC: {agent.server.addr[0]}:{agent.server.addr[1]}")
-    print("==> Agent started! Ctrl-C to stop.")
     stop = [False]
     hup = [False]
 
@@ -144,6 +137,9 @@ def cmd_agent(args) -> int:
     def on_hup(sig, frame):
         hup[0] = True  # handled on the main loop, not in the handler
 
+    # The handlers go in before the agent starts: a client-only agent is
+    # ready as soon as start() returns, so a SIGTERM sent on seeing the
+    # banner must already find them.
     signal.signal(signal.SIGINT, on_sig)
     signal.signal(signal.SIGTERM, on_sig)
     # SIGHUP re-reads the config file and applies the reloadable subset
@@ -151,6 +147,13 @@ def cmd_agent(args) -> int:
     # reference command/agent/command.go handleSignals → handleReload.
     if hasattr(signal, "SIGHUP"):
         signal.signal(signal.SIGHUP, on_hup)
+    agent = Agent(cfg)
+    agent.start()
+    if agent.http_addr:
+        print(f"==> HTTP API: http://{agent.http_addr[0]}:{agent.http_addr[1]}")
+    if agent.server:
+        print(f"==> RPC: {agent.server.addr[0]}:{agent.server.addr[1]}")
+    print("==> Agent started! Ctrl-C to stop.")
     try:
         while not stop[0]:
             if hup[0]:

@@ -10,18 +10,23 @@ can be carried into the other without importing it. Fields the sender
 elided or did not know get their declared defaults; fields this side
 does not know are dropped.
 
-``pack``/``unpack`` are the byte form the raft log keeps and the state
-store's snapshots use: the elided wire form as compact JSON. (The
-reference packs msgpack with a C encoder; the port's bytes need only be
-self-consistent, and JSON, like msgpack, never aliases a repeated
-value, so a plan's SoA rows and its eager rows encode to equal bytes.)
-``warm_native`` resolves the C fastpack (``native/``) once, outside
-every lock; ``native_module`` hands it out without ever building.
+``pack``/``unpack`` are the byte form of the RPC fabric's frames, the
+raft log, the state store's snapshots and the client's state database:
+the elided wire form as msgpack, byte for byte what ``nomad_tpu.codec.
+pack`` writes for the same structs, so either package reads the other's
+frames. The C fastpack (``native/fastpack.c``) encodes and decodes;
+where it did not build, a pure-Python msgpack writer and reader (the
+twins, ``_pack_py`` and ``_unpack_py``) give the same bytes and values.
+JSON stays where the reference has it: the HTTP API (``json_default``).
+``warm_native`` resolves the C fastpack once, outside every lock, and
+syncs the class registry into it; ``native_module`` hands it out without
+ever building.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Any, Optional
 
 _TYPE_KEY = "$t"
@@ -37,7 +42,10 @@ _SCALARS = frozenset((bool, int, float, str, bytes, type(None)))
 # solve's table) then cross the wire with one C-level type scan instead
 # of a to_wire/from_wire call per element
 _FLAT = frozenset((bool, int, float, str, type(None)))
-# cls -> [(name, default, factory_or_None, has_default)]
+# cls -> [(name, compare_default, factory_or_None, has_default)]:
+# compare_default is what an encoder elides against (a factory field's
+# is one instance the factory minted); factory is what a decoder calls
+# to mint a fresh default, never shared between decoded objects
 _FIELD_PLANS: dict[type, list] = {}
 
 
@@ -76,7 +84,8 @@ def _field_plan(cls: type) -> list:
             if f.default is not dataclasses.MISSING:
                 plan.append((f.name, f.default, None, True))
             elif f.default_factory is not dataclasses.MISSING:
-                plan.append((f.name, None, f.default_factory, True))
+                plan.append((f.name, f.default_factory(), f.default_factory,
+                             True))
             else:
                 plan.append((f.name, None, None, False))
         _FIELD_PLANS[cls] = plan
@@ -234,7 +243,7 @@ def _encoder_for(cls: type):
 
 
 def to_wire(obj: Any, _elide: bool = False) -> Any:
-    """Lower to JSON-able data. Unknown object types are an error:
+    """Lower to JSON/msgpack-able data. Unknown object types are an error:
     payloads are built from registered structs and primitives.
 
     With _elide (the pack() path), dataclass fields still equal to their
@@ -304,24 +313,261 @@ def json_default(o):
 
 
 def pack(obj: Any) -> bytes:
-    import json
+    """The msgpack bytes of obj's elided wire form. With the fastpack
+    resolved, its struct encoder writes obj; what it leaves to Python
+    (Fallback: PlanResult, whose encoder folds its batches, or an
+    unregistered class) is lowered by :func:`to_wire` and written by its
+    wire writer. Without it, or past that writer too, the Python writer
+    :func:`_pack_py`. Every route gives the same bytes."""
+    fp = _fastpack or None
+    if fp is not None:
+        try:
+            return fp.pack(obj)
+        except fp.Fallback:
+            pass
+    wire = to_wire(obj, _elide=True)
+    if fp is not None:
+        try:
+            return fp.pack(wire, True)
+        except fp.Fallback:
+            pass
+    return _pack_py(wire)
 
-    return json.dumps(
-        to_wire(obj, _elide=True), separators=(",", ":"),
-        ensure_ascii=False, default=json_default,
-    ).encode()
+
+def unpack(raw) -> Any:
+    """Structs back from :func:`pack`'s bytes (or the reference's):
+    the C decoder, or the Python reader where it did not build. Raises
+    ValueError on truncated or malformed input."""
+    fp = _fastpack or None
+    if fp is not None:
+        return fp.unpack(raw)
+    return _unpack_py(raw)
 
 
-def unpack(raw: bytes) -> Any:
-    import json
+# -- the pure-Python msgpack twins --------------------------------------------
 
-    return from_wire(json.loads(raw))
+# the nesting the reader accepts, as fastpack.c's MAX_DECODE_DEPTH
+_MAX_DECODE_DEPTH = 256
+# the nesting the writer accepts, as the msgpack package's packer
+_MAX_ENCODE_DEPTH = 511
+
+_F64 = struct.Struct(">d")
+_F32 = struct.Struct(">f")
+
+
+def _pack_py(wire: Any) -> bytes:
+    """msgpack bytes of a wire value (dicts, lists, scalars, bytes), as
+    the msgpack package's ``packb(use_bin_type=True)`` writes them: the
+    smallest form of each int, str and container, floats as float64."""
+    out = bytearray()
+    _write(wire, out, 0)
+    return bytes(out)
+
+
+def _header(out: bytearray, n: int, fix: int, code16: int) -> None:
+    """A map's or array's header: fixmap/fixarray below 16, then the
+    16- and 32-bit forms (code16 and the code after it)."""
+    if n < 16:
+        out.append(fix | n)
+    elif n <= 0xFFFF:
+        out.append(code16)
+        out += n.to_bytes(2, "big")
+    else:
+        out.append(code16 + 1)
+        out += n.to_bytes(4, "big")
+
+
+def _write(o: Any, out: bytearray, depth: int) -> None:
+    if depth > _MAX_ENCODE_DEPTH:
+        raise ValueError("recursion limit exceeded")
+    if o is None:
+        out.append(0xC0)
+    elif o is True:
+        out.append(0xC3)
+    elif o is False:
+        out.append(0xC2)
+    elif isinstance(o, int):
+        if 0 <= o < 0x80 or -32 <= o < 0:
+            out.append(o & 0xFF)
+        elif o > 0:
+            for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+                if o < 1 << (8 * width):
+                    out.append(code)
+                    out += o.to_bytes(width, "big")
+                    return
+            raise OverflowError("Integer value out of range")
+        else:
+            for code, width in ((0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+                if o >= -(1 << (8 * width - 1)):
+                    out.append(code)
+                    out += o.to_bytes(width, "big", signed=True)
+                    return
+            raise OverflowError("Integer value out of range")
+    elif isinstance(o, str):
+        b = o.encode("utf-8")
+        n = len(b)
+        if n < 32:
+            out.append(0xA0 | n)
+        elif n <= 0xFF:
+            out.append(0xD9)
+            out.append(n)
+        elif n <= 0xFFFF:
+            out.append(0xDA)
+            out += n.to_bytes(2, "big")
+        else:
+            out.append(0xDB)
+            out += n.to_bytes(4, "big")
+        out += b
+    elif isinstance(o, dict):
+        _header(out, len(o), 0x80, 0xDE)
+        for k, v in o.items():
+            _write(k, out, depth + 1)
+            _write(v, out, depth + 1)
+    elif isinstance(o, list):
+        _header(out, len(o), 0x90, 0xDC)
+        for v in o:
+            _write(v, out, depth + 1)
+    elif isinstance(o, float):
+        out.append(0xCB)
+        out += _F64.pack(o)
+    elif isinstance(o, bytes):
+        n = len(o)
+        if n <= 0xFF:
+            out.append(0xC4)
+            out.append(n)
+        elif n <= 0xFFFF:
+            out.append(0xC5)
+            out += n.to_bytes(2, "big")
+        else:
+            out.append(0xC6)
+            out += n.to_bytes(4, "big")
+        out += o
+    else:
+        raise TypeError(f"can not serialize {type(o).__name__!r} object")
+
+
+def _unpack_py(raw) -> Any:
+    """The twin of fastpack's ``unpack``: a plain reader of every
+    msgpack int and float width, str, bin, array and map, its value then
+    rebuilt by :func:`from_wire`."""
+    buf = bytes(raw)
+    obj, pos = _read(buf, 0, 0)
+    if pos != len(buf):
+        raise ValueError("extra data after the msgpack value")
+    return from_wire(obj)
+
+
+def _need(buf: bytes, pos: int, n: int) -> None:
+    if len(buf) - pos < n:
+        raise ValueError("truncated msgpack input")
+
+
+def _uint(buf: bytes, pos: int, n: int) -> int:
+    _need(buf, pos, n)
+    return int.from_bytes(buf[pos:pos + n], "big")
+
+
+def _read(buf: bytes, pos: int, depth: int) -> tuple:
+    depth += 1
+    if depth > _MAX_DECODE_DEPTH:
+        raise ValueError("msgpack nesting too deep")
+    _need(buf, pos, 1)
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7F:
+        return b, pos
+    if b >= 0xE0:
+        return b - 0x100, pos
+    kind = b & 0xE0
+    if kind == 0xA0:
+        return _read_str(buf, pos, b & 0x1F)
+    if kind == 0x80:
+        if b < 0x90:
+            return _read_map(buf, pos, b & 0x0F, depth)
+        return _read_array(buf, pos, b & 0x0F, depth)
+    if b == 0xC0:
+        return None, pos
+    if b == 0xC2:
+        return False, pos
+    if b == 0xC3:
+        return True, pos
+    if 0xC4 <= b <= 0xC6:
+        w = 1 << (b - 0xC4)
+        n = _uint(buf, pos, w)
+        pos += w
+        _need(buf, pos, n)
+        return buf[pos:pos + n], pos + n
+    if b == 0xCA:
+        _need(buf, pos, 4)
+        return _F32.unpack_from(buf, pos)[0], pos + 4
+    if b == 0xCB:
+        _need(buf, pos, 8)
+        return _F64.unpack_from(buf, pos)[0], pos + 8
+    if 0xCC <= b <= 0xCF:
+        w = 1 << (b - 0xCC)
+        return _uint(buf, pos, w), pos + w
+    if 0xD0 <= b <= 0xD3:
+        w = 1 << (b - 0xD0)
+        _need(buf, pos, w)
+        return int.from_bytes(buf[pos:pos + w], "big", signed=True), pos + w
+    if 0xD9 <= b <= 0xDB:
+        w = 1 << (b - 0xD9)
+        return _read_str(buf, pos + w, _uint(buf, pos, w))
+    if b in (0xDC, 0xDD):
+        w = 2 if b == 0xDC else 4
+        return _read_array(buf, pos + w, _uint(buf, pos, w), depth)
+    if b in (0xDE, 0xDF):
+        w = 2 if b == 0xDE else 4
+        return _read_map(buf, pos + w, _uint(buf, pos, w), depth)
+    # 0xc1 (never used) and the ext family: nothing the codec emits
+    raise ValueError(f"unsupported msgpack type 0x{b:02x}")
+
+
+def _read_str(buf: bytes, pos: int, n: int) -> tuple:
+    _need(buf, pos, n)
+    return str(buf[pos:pos + n], "utf-8"), pos + n
+
+
+def _read_array(buf: bytes, pos: int, n: int, depth: int) -> tuple:
+    _need(buf, pos, n)  # each item takes a byte at least
+    out = []
+    for _ in range(n):
+        v, pos = _read(buf, pos, depth)
+        out.append(v)
+    return out, pos
+
+
+def _read_map(buf: bytes, pos: int, n: int, depth: int) -> tuple:
+    _need(buf, pos, 2 * n)
+    d = {}
+    for _ in range(n):
+        k, pos = _read(buf, pos, depth)
+        v, pos = _read(buf, pos, depth)
+        d[k] = v
+    return d, pos
 
 
 # -- the C fastpack ----------------------------------------------------------
 
 _fastpack = None  # None: not resolved yet; False: unavailable
 _native_reported = False
+
+
+def _sync_registry(fp) -> None:
+    """Hand the fastpack every registered class with its field plan, as
+    the reference's ``_fastpack_module`` does. PlanResult is registered
+    for decoding only: its Python encoder folds alloc_batches into
+    node_allocation (``_encode_plan_result``), which the C field-plan
+    encoder would emit as a field; the C encoder falls back for it.
+    Idempotent: a second thread warming at the same time re-registers
+    equal plans and never empties a registry another thread decodes
+    with."""
+    for name, cls in _registry().items():
+        if dataclasses.is_dataclass(cls):
+            fp.register_class(cls, tuple(_field_plan(cls)),
+                              name != "PlanResult")
+        else:
+            fp.register_class(cls, None)
 
 
 def native_module():
@@ -344,7 +590,12 @@ def warm_native() -> bool:
     if _fastpack is None:
         from .native import load_fastpack
 
-        _fastpack = load_fastpack() or False
+        fp = load_fastpack()
+        if fp is not None:
+            _sync_registry(fp)
+        # published only once synced: a decoder that meets a "$t" map
+        # knows every registered class from its first call
+        _fastpack = fp or False
     live = _fastpack is not False
     if not _native_reported:
         _native_reported = True

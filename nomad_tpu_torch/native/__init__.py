@@ -31,9 +31,14 @@ _load_failed = False
 # has a pure-Python twin with identical behavior; tests/test_torch_native.py
 # pins this list against the C method table and the twins.
 FASTPACK_ENTRY_POINTS = (
-    "uuid_hex",      # bulk id formatting (structs.generate_uuids)
-    "pick_ports",    # bulk dynamic-port picking (structs.network)
-    "store_rows",    # bulk store id-index inserts (state.store)
+    "pack",            # elide-defaults msgpack encoder (codec.pack)
+    "unpack",          # msgpack decoder to structs (codec.unpack)
+    "register_class",  # class-plan registry sync (codec.warm_native)
+    "clear_registry",
+    "uuid_hex",        # bulk id formatting (structs.generate_uuids)
+    "wire_rows",       # SoA plan-row wire assembly (placement_batch)
+    "pick_ports",      # bulk dynamic-port picking (structs.network)
+    "store_rows",      # bulk store id-index inserts (state.store)
 )
 
 # Wall seconds load_fastpack spent making the extension importable in

@@ -130,6 +130,10 @@ class _Conn:
         could double-apply a non-idempotent write."""
         seq = next(self._seq)
         waiter = {"event": threading.Event(), "resp": None}
+        if not self.dead and self._peer_closed():
+            # the peer's FIN is here and the reader has not run yet: a
+            # request sent now would be lost as delivered
+            self.dead = True
         with self._pending_lock:
             if self.dead:
                 if self.auth_failed:
@@ -189,6 +193,19 @@ class _Conn:
                 raise err
             raise RPCError(resp["error"])
         return resp.get("result")
+
+    def _peer_closed(self) -> bool:
+        """True when the peer's end of stream already waits on the
+        socket. A peek (the base socket's recv, which TLS does not wrap)
+        that consumes nothing the reader thread would read."""
+        try:
+            return socket.socket.recv(
+                self.sock, 1, socket.MSG_PEEK | socket.MSG_DONTWAIT
+            ) == b""
+        except (BlockingIOError, InterruptedError):
+            return False
+        except OSError:
+            return True
 
     def close(self) -> None:
         self.dead = True

@@ -6,9 +6,9 @@ RpcMultiplex/RpcTLS/RpcStreaming). The fabric keeps the same first-byte
 switch with length-prefixed frames instead of net/rpc + yamux: one
 logical request/response (or stream chunk) per frame, with interleaving
 by sequence number replacing stream multiplexing. A frame's body is the
-port's ``codec.pack`` (compact JSON of the tagged wire form, bytes as
-base64), so the port's fabric speaks to its own peers only: it is not
-byte-compatible with ``nomad_tpu``'s msgpack frames.
+port's ``codec.pack``: msgpack of the tagged wire form, byte for byte
+what ``nomad_tpu``'s codec writes, so the two packages' frames are
+interchangeable.
 """
 
 from __future__ import annotations

@@ -10,9 +10,9 @@ commit restricted to current-term entries (§5.4.2), and InstallSnapshot
 for lagging followers.
 
 Raft RPCs ride the same framed fabric as everything else (`Raft.*`
-endpoint methods) instead of a dedicated byte-stream layer. The port's
-frames are JSON (rpc/wire.py), so an entry's packed payload bytes cross
-as base64 inside an AppendEntries frame.
+endpoint methods) instead of a dedicated byte-stream layer. An entry's
+packed payload crosses as one msgpack bin inside the AppendEntries frame
+(rpc/wire.py).
 
 The FSM contract is unchanged from the single-node path (raft.py): apply()
 is only ever invoked with committed entries, in order, exactly once per

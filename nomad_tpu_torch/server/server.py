@@ -117,12 +117,18 @@ class NodeRegisterBatcher:
     revoke. ``submit`` returns False when not running (caller falls back
     to a direct ``node_register`` apply) so followers applying forwarded
     writes and pre-leadership tests never deadlock on a dead worker.
+
+    ``commit`` replaces the ``node_register_batch`` apply for another
+    per-node write that storms the same way: the server's down-to-ready
+    recoveries (``Server._mark_ready_batch``) share entries so.
     """
 
     def __init__(
-        self, raft_apply, window_s: float = 0.005, max_batch: int = 256
+        self, raft_apply, window_s: float = 0.005, max_batch: int = 256,
+        commit=None,
     ) -> None:
         self.raft_apply = raft_apply
+        self.commit = commit or self._register
         self.window_s = window_s
         self.max_batch = max_batch
         self._cv = threading.Condition(threading.Lock())
@@ -174,6 +180,9 @@ class NodeRegisterBatcher:
             raise box.error
         return True
 
+    def _register(self, nodes: list) -> None:
+        self.raft_apply("node_register_batch", nodes)
+
     def _run(self) -> None:
         while True:
             with self._cv:
@@ -192,7 +201,7 @@ class NodeRegisterBatcher:
             nodes = [node for node, _box in batch]
             err: Optional[BaseException] = None
             try:
-                self.raft_apply("node_register_batch", nodes)
+                self.commit(nodes)
             except BaseException as exc:  # propagate to every waiter
                 err = exc
             else:
@@ -288,6 +297,14 @@ class Server:
         # Node.register writes share node_register_batch raft entries
         # (leader-only; started at establish-leadership).
         self.register_batcher = NodeRegisterBatcher(self.raft_apply)
+        # A down node's first heartbeat marks it ready: after a mass
+        # expiry those recoveries storm like registrations and share
+        # entries the same way (leader-only, like the register batcher).
+        # No coalescing window: every heartbeat waits on its batch, so
+        # the batch is whatever queued during the previous commit.
+        self.ready_batcher = NodeRegisterBatcher(
+            self.raft_apply, window_s=0.0, commit=self._mark_ready_batch
+        )
         self.deployment_watcher = DeploymentsWatcher(self.state, self.raft_apply)
         self.drainer = NodeDrainer(self.state, self.raft_apply)
         self.volume_watcher = VolumeWatcher(self.state, self.raft_apply)
@@ -402,6 +419,7 @@ class Server:
         self.blocked_evals.set_enabled(True)
         self.heartbeaters.set_enabled(True)
         self.register_batcher.start()
+        self.ready_batcher.start()
         self.plan_applier.start()
         for w in self.workers:
             w.start()
@@ -459,6 +477,7 @@ class Server:
             self.tpu_worker.stop()
         self.plan_applier.stop()
         self.register_batcher.stop()
+        self.ready_batcher.stop()
         self.eval_broker.set_enabled(False)
         self.plan_queue.set_enabled(False)
         self.blocked_evals.set_enabled(False)
@@ -1062,7 +1081,12 @@ class Server:
         if node is None:
             raise KeyError(f"unknown node {node_id}")
         if node.status != NODE_STATUS_READY:
-            self.node_update_status(node_id, NODE_STATUS_READY)
+            # concurrent recoveries share one batch; the direct write
+            # serves followers and anything before leadership
+            if not self.ready_batcher.submit(node_id):
+                self.node_update_status(node_id, NODE_STATUS_READY)
+            elif self.state.node_by_id(node_id) is None:
+                raise KeyError(f"unknown node {node_id}")
         return self.heartbeaters.reset(node_id)
 
     def node_update_status(self, node_id: str, status: str) -> None:
@@ -1084,6 +1108,38 @@ class Server:
                 self.blocked_evals.unblock(
                     node.computed_class, self.state.latest_index()
                 )
+
+    def _mark_ready_batch(self, node_ids: list[str]) -> None:
+        """``node_update_status(nid, READY)`` for a batch of recovering
+        nodes: ONE node_batch_update_status entry and ONE eval_update
+        instead of two entries a node, with the same evals and the same
+        class unblocks. A node that was ready before the write mints
+        nothing, as in the single-node path."""
+        ids = list(dict.fromkeys(node_ids))
+        prev = {nid: self.state.node_by_id(nid) for nid in ids}
+        index, wait = self.raft_apply_async(
+            "node_batch_update_status", (ids, NODE_STATUS_READY)
+        )
+        # the evals follow the status entry without waiting for it: each
+        # is built from the node as that entry leaves it (ready, stamped
+        # with its index), as the single-node path reads it after apply
+        evals: list[Evaluation] = []
+        classes: dict[str, None] = {}
+        for nid, node in prev.items():
+            if node is None or node.status == NODE_STATUS_READY:
+                continue
+            node = node.copy()
+            node.status = NODE_STATUS_READY
+            node.modify_index = index
+            evals.extend(self._build_node_evals(nid, node=node))
+            classes[node.computed_class] = None
+        if evals:
+            _index, wait = self.raft_apply_async("eval_update", evals)
+        wait()
+        for computed_class in classes:
+            self.blocked_evals.unblock(
+                computed_class, self.state.latest_index()
+            )
 
     def node_update_drain(
         self, node_id: str, drain: Optional[DrainStrategy], mark_eligible: bool = False
@@ -1170,12 +1226,16 @@ class Server:
         return [e.id for e in evals]
 
     def _build_node_evals(
-        self, node_id: str, trigger: str = EVAL_TRIGGER_NODE_UPDATE
+        self, node_id: str, trigger: str = EVAL_TRIGGER_NODE_UPDATE,
+        node=None,
     ) -> list[Evaluation]:
         """One eval per job with allocs on the node (reference
         node_endpoint.go:495 createNodeEvals). Build-only so batch
-        callers can merge many nodes' evals into one raft entry."""
-        node = self.state.node_by_id(node_id)
+        callers can merge many nodes' evals into one raft entry.
+        ``node`` stands in for the stored node: the node as a write
+        still in flight will leave it."""
+        if node is None:
+            node = self.state.node_by_id(node_id)
         evals: list[Evaluation] = []
         seen: set[tuple[str, str]] = set()
         for alloc in self.state.allocs_by_node(node_id):

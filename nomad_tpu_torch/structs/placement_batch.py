@@ -267,7 +267,7 @@ class PlacementBatch:
         return out
 
 
-def _wire_rows(template, ids, names, node_ids, node_names):
+def _wire_rows_py(template, ids, names, node_ids, node_names):
     out = []
     ap = out.append
     for uid, name, nid, nname in zip(ids, names, node_ids, node_names):
@@ -278,6 +278,18 @@ def _wire_rows(template, ids, names, node_ids, node_names):
         d["node_name"] = nname
         ap(d)
     return out
+
+
+def _wire_rows(template, ids, names, node_ids, node_names):
+    """The rows from fastpack's ``wire_rows`` when the extension is
+    resolved (this module never builds it: codec.warm_native does), else
+    from the Python twin; both give equal dicts with equal key order."""
+    from .. import codec
+
+    fp = codec.native_module()
+    if fp is not None:
+        return fp.wire_rows(template, ids, names, node_ids, node_names)
+    return _wire_rows_py(template, ids, names, node_ids, node_names)
 
 
 class AllocRow:

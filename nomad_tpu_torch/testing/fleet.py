@@ -28,7 +28,13 @@ What is real vs simulated:
     ``Node.get_client_allocs`` queries on dedicated threads, while every
     other node probes the leader's watch hub in-process (O(1)) — 10k
     parked watcher threads would measure the host's thread scheduler,
-    not the server.
+    not the server;
+  * a node's register and heartbeat RPCs run on a pool of
+    ``RPC_WORKERS`` threads, not on the driver that found them due: a
+    real client waits on its own calls only, so a registration or a
+    recovering heartbeat blocked on a raft commit must not hold back
+    other nodes' heartbeats (with the drivers making the calls, a
+    reconnect storm kept the whole heap behind the TTL).
 
 ``run_fleet_scale`` is the scenario harness: registration storm through
 the node door, steady-state heartbeats + job traffic, a mass partition
@@ -42,6 +48,7 @@ from __future__ import annotations
 import heapq
 import logging
 import math
+import queue
 import random
 import threading
 import time
@@ -55,6 +62,9 @@ logger = logging.getLogger("nomad_tpu_torch.testing")
 ACT_REGISTER = 0
 ACT_HEARTBEAT = 1
 ACT_WATCH = 2
+
+# register and heartbeat calls in flight at once, across the fleet
+RPC_WORKERS = 64
 
 
 class _SimNode:
@@ -145,6 +155,13 @@ class SimFleet:
             )
             for i in range(max(1, driver_threads))
         ]
+        self._calls: queue.SimpleQueue = queue.SimpleQueue()
+        self._callers = [
+            threading.Thread(
+                target=self._call_loop, name=f"fleet-rpc-{i}", daemon=True
+            )
+            for i in range(RPC_WORKERS)
+        ]
         self._n_real_watchers = real_watchers
         self.watchers: list[_RealWatcher] = []
 
@@ -181,7 +198,7 @@ class SimFleet:
                 self._sims[sim.node.id] = sim
                 self._push_locked(now, sim.node.id, ACT_REGISTER)
             self._cv.notify_all()
-        for t in self._drivers:
+        for t in self._drivers + self._callers:
             if not t.is_alive():
                 t.start()
         ok = self._wait(
@@ -198,7 +215,9 @@ class SimFleet:
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
-        for t in self._drivers:
+        for _ in self._callers:
+            self._calls.put(None)
+        for t in self._drivers + self._callers:
             if t.is_alive():
                 t.join(timeout=10)
         for w in self.watchers:
@@ -264,10 +283,21 @@ class SimFleet:
             if entry is None:
                 return
             _due, _seq, node_id, action = entry
-            try:
-                self._step(node_id, action)
-            except Exception:
-                logger.exception("fleet action failed")
+            if action == ACT_WATCH:
+                self._run_step(node_id, action)
+            else:
+                self._calls.put((node_id, action))
+
+    def _call_loop(self) -> None:
+        while (call := self._calls.get()) is not None:
+            if not self._stop.is_set():
+                self._run_step(*call)
+
+    def _run_step(self, node_id: str, action: int) -> None:
+        try:
+            self._step(node_id, action)
+        except Exception:
+            logger.exception("fleet action failed")
 
     def _step(self, node_id: str, action: int) -> None:
         sim = self._sims.get(node_id)

@@ -10,8 +10,8 @@ as RaftNode.apply_submit packs it (codec.pack). Then the AppendEntries
 request a follower receives is built as RaftNode._replicate_loop builds
 it, inside the fabric's envelope, for one plan entry and for a backlog of
 K plan entries (what a restarted follower gets in one frame), and is
-encoded and decoded as the fabric's frame (codec.pack / unpack, bytes as
-base64 in JSON). Prints one JSON line. Sizes are exact; seconds are this
+encoded and decoded as the fabric's frame (codec.pack / unpack: msgpack,
+the packed entries as bins). Prints one JSON line. Sizes are exact; seconds are this
 host's CPU, not the card machine's.
 """
 

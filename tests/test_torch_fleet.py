@@ -405,6 +405,128 @@ class TestNodeRegisterBatcher:
         # the in-flight batch completed normally (True)
         assert sorted(results, key=bool) in ([False, True], [True, True])
 
+    def test_commit_hook_replaces_the_register_entry(self):
+        applies, commits = [], []
+        batcher = NodeRegisterBatcher(
+            lambda op, data: applies.append(op), window_s=0.0,
+            commit=commits.append,
+        )
+        batcher.start()
+        try:
+            assert batcher.submit("n1") is True
+        finally:
+            batcher.stop()
+        assert commits == [["n1"]] and applies == []
+
+
+def _recover_down_fleet(batched: bool, n: int = 16) -> dict:
+    """n nodes, one alloc of one job on each and a system job, all
+    marked down in one batch; then each node's heartbeat from its own
+    thread, all at once. batched=False stops the server's ready batcher, so every heartbeat
+    takes the single-node path (node_update_status, as nomad_tpu does).
+    Returns the raft entries the heartbeats wrote, the statuses and the
+    evals they minted."""
+    from nomad_tpu_torch.scheduler.context import SchedulerConfig
+    from nomad_tpu_torch.server import Server
+
+    srv = Server(num_workers=0, scheduler_config=SchedulerConfig(
+        device="cpu"))
+    srv.establish_leadership()
+    srv.heartbeaters.set_enabled(False)  # no TTLs: nothing expires
+    if not batched:
+        srv.ready_batcher.stop()
+    try:
+        nodes = [mock.node() for _ in range(n)]
+        srv.raft_apply("node_register_batch", nodes)
+        job = mock.job(id="recover-job")
+        srv.raft_apply("job_register", (job, None))
+        # a system job with no allocs yet: a node that comes back ready
+        # owes it an eval too
+        srv.raft_apply("job_register",
+                       (mock.system_job(id="recover-sys"), None))
+        srv.raft_apply("alloc_update", [
+            mock.alloc(job, node, index=i) for i, node in enumerate(nodes)])
+        ids = [node.id for node in nodes]
+        srv.raft_apply("node_batch_update_status", (ids, "down"))
+        before = {e.id for e in srv.state.evals()}
+
+        entries: list[str] = []
+        first = threading.Event()
+
+        def counting(apply):
+            def counted(msg_type, payload):
+                if batched and not first.is_set():
+                    # hold the first commit until every other heartbeat
+                    # has queued behind it
+                    first.set()
+                    deadline = time.monotonic() + 10
+                    while (len(payload[0]) + len(srv.ready_batcher._queue)
+                           < n and time.monotonic() < deadline):
+                        time.sleep(0.005)
+                entries.append(msg_type)
+                return apply(msg_type, payload)
+            return counted
+
+        srv.raft_apply = counting(srv.raft_apply)
+        srv.raft_apply_async = counting(srv.raft_apply_async)
+        start = threading.Barrier(n)
+
+        def beat(nid):
+            start.wait(10)
+            srv.node_heartbeat(nid)
+
+        threads = [threading.Thread(target=beat, args=(nid,)) for nid in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        return {
+            "entries": entries,
+            "status": {nid: srv.state.node_by_id(nid).status for nid in ids},
+            # nodes named by their place: each run mints its own ids
+            "evals": sorted(
+                (ids.index(e.node_id), e.job_id, e.triggered_by, e.type,
+                 e.priority, e.status)
+                for e in srv.state.evals() if e.id not in before),
+        }
+    finally:
+        srv.shutdown()
+
+
+class TestReadyBatcher:
+    def test_concurrent_recoveries_share_entries(self):
+        """A reconnect storm's recoveries (a down node's heartbeat) share
+        node_batch_update_status and eval_update entries, and leave the
+        same statuses and evals as the single-node path."""
+        batched = _recover_down_fleet(True)
+        direct = _recover_down_fleet(False)
+        assert set(batched["status"].values()) == {"ready"}
+        assert set(direct["status"].values()) == {"ready"}
+        assert batched["evals"] == direct["evals"]
+        assert len(batched["evals"]) == 32
+        assert direct["entries"].count("node_update_status") == 16
+        # every heartbeat is in the first batch or queued behind it
+        assert batched["entries"] in (
+            ["node_batch_update_status", "eval_update"] * k for k in (1, 2))
+
+    def test_heartbeat_of_a_ready_node_writes_nothing(self):
+        from nomad_tpu_torch.scheduler.context import SchedulerConfig
+        from nomad_tpu_torch.server import Server
+
+        srv = Server(num_workers=0, scheduler_config=SchedulerConfig(
+            device="cpu"))
+        srv.establish_leadership()
+        try:
+            node = mock.node()
+            srv.node_register(node)
+            index = srv.state.latest_index()
+            assert srv.node_heartbeat(node.id) > 0
+            assert srv.state.latest_index() == index
+            with pytest.raises(KeyError):
+                srv.node_heartbeat("no-such-node")
+        finally:
+            srv.shutdown()
+
 
 class TestOperatorTopFleetPanel:
     def test_fleet_panel_renders_when_fleet_active(self):

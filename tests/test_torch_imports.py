@@ -3,6 +3,9 @@
 * No module imports ``jax`` or anything of ``nomad_tpu``: the port keeps
   its own copy of every module it needs, and state crosses between the
   two packages only as wire dicts, in the tests.
+* No module imports ``msgpack``: the wire codec writes and reads
+  msgpack itself (the C fastpack, or its Python twins), since the card
+  machine has no msgpack package.
 * ``torch`` is imported at module load only under ``scheduler/gpu``;
   everywhere else it is imported inside the function that needs it, so
   the host modules load without it.
@@ -75,6 +78,37 @@ def test_module_never_imports_jax_or_nomad_tpu(path):
     bad = [name for node in ast.walk(tree) for name in _imported(node)
            if name.split(".")[0] in ("jax", "jaxlib", "nomad_tpu")]
     assert bad == [], f"{_rel(path)} imports {bad}"
+
+
+def test_no_module_imports_msgpack():
+    bad = {}
+    for path in MODULES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        names = [name for node in ast.walk(tree) for name in _imported(node)
+                 if name.split(".")[0] == "msgpack"]
+        if names:
+            bad[_rel(path)] = names
+    assert bad == {}
+
+
+def test_the_codec_round_trips_without_msgpack_loaded():
+    """A fresh interpreter packs and unpacks a struct through the port's
+    codec, C and Python twins both, and never loads msgpack."""
+    code = (
+        "import sys\n"
+        "from nomad_tpu_torch import codec, mock\n"
+        "n = mock.node()\n"
+        "raw = codec.pack(n)\n"
+        "assert codec.unpack(raw).id == n.id\n"
+        "assert codec.warm_native()\n"
+        "assert codec.pack(n) == raw and codec.unpack(raw).id == n.id\n"
+        "assert 'msgpack' not in sys.modules, 'msgpack loaded'\n"
+        "print('NO-MSGPACK-OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(PKG.parent), timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "NO-MSGPACK-OK" in proc.stdout
 
 
 @pytest.mark.parametrize("path", MODULES, ids=_rel)

@@ -1,11 +1,14 @@
 """The port's C fastpack against its Python twins, on the CPU.
 
-nomad_tpu_torch/native/fastpack.c holds the three bulk helpers of the
-commit path: uuid_hex (alloc-id formatting), pick_ports (dynamic-port
-draws over a free-port bitmap) and store_rows (the store's node-grouped
-id-index inserts). Each has a pure-Python twin that runs where no C
-compiler is; the C form must be bit-equal to it on every seeded input
-here, and the twins to nomad_tpu's. Tolerance: none. gcc builds the
+nomad_tpu_torch/native/fastpack.c holds the wire codec's msgpack
+encoder and decoder (pack, unpack, register_class, clear_registry and
+wire_rows, held against their twins in tests/test_torch_codec.py) and
+the three bulk helpers of the commit path: uuid_hex (alloc-id
+formatting), pick_ports (dynamic-port draws over a free-port bitmap) and
+store_rows (the store's node-grouped id-index inserts). Each has a
+pure-Python twin that runs where no C compiler is; the C form must be
+bit-equal to it on every seeded input here, and the twins to
+nomad_tpu's. Tolerance: none. gcc builds the
 extension into nomad_tpu_torch/_build/ at codec.warm_native().
 """
 
@@ -56,6 +59,11 @@ def test_entry_point_list_matches_c_method_table():
     src = _SRC.read_text()
     table = src[src.index("static PyMethodDef methods[]"):]
     assert set(re.findall(r'\{"(\w+)",', table)) == set(FASTPACK_ENTRY_POINTS)
+    # the wire codec's entry points, as the reference's fastpack has them,
+    # and the decoder of the port's own
+    assert set(FASTPACK_ENTRY_POINTS) == {
+        "pack", "unpack", "register_class", "clear_registry", "uuid_hex",
+        "wire_rows", "pick_ports", "store_rows"}
 
 
 def test_only_codec_resolves_the_extension():
@@ -208,8 +216,20 @@ h.state.upsert_job(h.next_index(), job)
 ev = mock.eval_for_job(job)
 plan = solve_eval_batch(h.snapshot(), h, [ev], cfg)[ev.id]
 assert plan.alloc_batches, "fast-mint must emit SoA batches"
-rt = codec.unpack(codec.pack(plan))
+raw = codec.pack(plan)
+rt = codec.unpack(raw)
 assert sum(len(b) for b in rt.alloc_batches) == 6
+# the wire on the twins: the Python writer's bytes are nomad_tpu's (its
+# codec on its own fallback, the msgpack package), the Python reader
+# reads them, and a PlanResult folds its batches through wire_rows' twin
+from nomad_tpu import codec as jc
+assert raw == jc.pack(jc.from_wire(codec.to_wire(plan)))
+assert codec.to_wire(rt) == jc.to_wire(jc.unpack(raw))
+from nomad_tpu_torch.structs import PlanResult
+pr = PlanResult(alloc_batches=list(plan.alloc_batches), job=plan.job)
+pr_raw = codec.pack(pr)
+assert pr_raw == jc.pack(jc.from_wire(codec.to_wire(pr)))
+assert sum(len(v) for v in codec.unpack(pr_raw).node_allocation.values()) == 6
 h.submit_plan(plan)
 allocs = h.state.allocs_by_job(job.namespace, job.id)
 assert len(allocs) == 6 and all(a.node_id for a in allocs)
@@ -219,8 +239,8 @@ print("FALLBACK-OK")
 
 def test_twins_run_the_commit_path_without_the_extension():
     """With the extension unavailable (NOMAD_TPU_NO_FASTPACK) ids, port
-    picks and the SoA commit run on the Python twins, and the loader
-    says why."""
+    picks, the wire (pack, unpack, wire_rows) and the SoA commit run on
+    the Python twins, and the loader says why."""
     proc = subprocess.run(
         [sys.executable, "-c", _FALLBACK_SCRIPT], capture_output=True,
         text=True, cwd=str(REPO), timeout=240,

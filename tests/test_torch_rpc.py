@@ -9,9 +9,11 @@ windows, the dial-time secret read, auth-failure recovery) and the 3 of
 tests/test_membership.py's TestMembership (join, failure detection,
 graceful leave), each with the same assertions, run against
 nomad_tpu_torch.rpc, its codec and nomad_tpu_torch.server.membership.
-The port's frames carry its own codec (compact JSON), not msgpack.
+The port's frames carry its own codec's msgpack, byte for byte
+nomad_tpu's.
 """
 
+import socket
 import threading
 import time
 
@@ -187,6 +189,29 @@ class TestRPC:
                 server2.shutdown()
         finally:
             pool.shutdown()
+
+    def test_peer_close_seen_before_send(self, monkeypatch):
+        """A pooled conn whose peer has closed while its reader has not
+        run yet: the call fails as never sent (the pool may redial),
+        not as delivered and lost."""
+        from nomad_tpu_torch.rpc.client import _Conn
+
+        gate = threading.Event()
+        monkeypatch.setattr(_Conn, "_read_loop", lambda self: gate.wait(10))
+        lst = socket.create_server(("127.0.0.1", 0))
+        try:
+            conn = _Conn(lst.getsockname(), 5.0)
+            peer, _ = lst.accept()
+            assert peer.recv(1)  # the preamble, so close sends a FIN
+            peer.close()
+            time.sleep(0.1)
+            with pytest.raises(ConnectionError) as ei:
+                conn.call("Echo.echo", "x", timeout_s=1.0)
+            assert ei.value.request_sent is False
+            gate.set()
+            conn.close()
+        finally:
+            lst.close()
 
     def test_timeout(self, rpc):
         server, pool = rpc
